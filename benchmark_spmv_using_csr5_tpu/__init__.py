@@ -1,5 +1,5 @@
-"""benchmark_spmv_using_csr5_tpu: a TPU-native CSR5 sparse linear-algebra
-library (JAX/XLA/Pallas), built from scratch with the capabilities of
+"""benchmark_spmv_using_csr5_tpu: a CSR5 sparse linear-algebra library in
+JAX, built from scratch with the capabilities of
 ``weifengliu-ssslab/Benchmark_SpMV_using_CSR5`` (Liu & Vinter, ICS '15).
 
 Public API (the anonymouslibHandle analogue lives in models.handle):
@@ -16,7 +16,7 @@ from .models.formats import COOMatrix, CSR5Matrix, CSRMatrix, csr_from_numpy, cs
 from .models.handle import SpMVHandle
 from .ops.convert import build_csr5, build_csr5_autotuned, csr5_to_csr
 from .ops.csr5_spmv import csr5_spmm, csr5_spmm_xla, csr5_spmv, csr5_spmv_xla
-from .ops.dia import DIAMatrix, build_dia, dia_spmm, dia_spmv, dia_supported
+from .ops.dia import DIAMatrix, build_dia, dia_spmm, dia_spmv
 from .ops.hyb import HYBMatrix, build_hyb, hyb_spmm, hyb_spmv
 from .ops.reference import coo_spmv, csr_spmm, csr_spmv
 from .ops.select import analyze_diagonals, select_format
@@ -49,7 +49,6 @@ __all__ = [
     "build_dia",
     "dia_spmm",
     "dia_spmv",
-    "dia_supported",
     "HYBMatrix",
     "build_hyb",
     "hyb_spmm",

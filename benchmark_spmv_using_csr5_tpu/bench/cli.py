@@ -1,10 +1,10 @@
 """CLI: ``python -m benchmark_spmv_using_csr5_tpu.bench.cli <matrix.mtx>``.
 
 Parity with the reference usage ``./spmv example.mtx`` (README.md:27,
-main.cu:146-155), extended with synthetic generators and TPU options:
+main.cu:146-155), extended with synthetic generators and format options:
 
     cli.py matrix.mtx [--sigma N] [--dtype float32|float64]
-           [--num-run N] [--backend auto|pallas|xla] [--spmm K]
+           [--num-run N] [--spmm K] [--format csr5|dia|hyb|bandblock|auto]
     cli.py --synthetic banded:500000:27
     cli.py --synthetic powerlaw:1000000:8
     cli.py --synthetic random:100000:0.0001
@@ -19,6 +19,7 @@ import numpy as np
 
 from ..config import AUTO_TUNED_SIGMA
 from ..utils import mmio, synth
+from ..utils.compile_cache import enable_compile_cache
 from .harness import run_benchmark
 
 
@@ -54,7 +55,7 @@ def load_matrix(args):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="TPU CSR5 SpMV benchmark")
+    ap = argparse.ArgumentParser(description="CSR5 SpMV benchmark")
     ap.add_argument("matrix", nargs="?", help=".mtx file (Matrix Market)")
     ap.add_argument(
         "--synthetic",
@@ -64,7 +65,6 @@ def main(argv=None):
     ap.add_argument("--sigma", type=int, default=AUTO_TUNED_SIGMA)
     ap.add_argument("--dtype", default="float32", choices=["float32", "float64"])
     ap.add_argument("--num-run", type=int, default=50)
-    ap.add_argument("--backend", default="auto", choices=["auto", "pallas", "xla"])
     ap.add_argument(
         "--spmm",
         type=int,
@@ -79,29 +79,34 @@ def main(argv=None):
         help="storage format: csr5 (general), dia (diagonal-structured; "
         "streams no column indices), hyb (dense diagonals via DIA + "
         "remainder via CSR5), bandblock (dense 128-row band blocks "
-        "contracted on the MXU — the multi-rhs --spmm path whose stream "
-        "is paid once for all rhs), or auto (one structural pass picks "
-        "the format by the measured TPU crossovers; ops/select.py)",
+        "contracted in one batched matmul — the multi-rhs --spmm path "
+        "whose dense plane is read once for all rhs), or auto (one "
+        "structural pass picks the format; ops/select.py)",
     )
     ap.add_argument(
         "--autotune",
         action="store_true",
         help="structure-aware sigma re-tune: reconvert at sigma=8 "
         "(short scattered rows) or 16 (long scattered rows) when the "
-        "matrix lands in the scattered gather tiers (one extra "
-        "conversion pass; measured 8-77%% faster SpMV there)",
+        "matrix's tiles touch non-contiguous column pages (one extra "
+        "conversion pass)",
     )
     ap.add_argument(
         "--reorder",
         choices=["none", "rcm", "auto"],
         default="none",
         help="locality-preserving symmetric permutation before conversion "
-        "(bandwidth reduction restores the fast gather tier for "
-        "irregular matrices; square matrices only). 'auto' detects "
+        "(bandwidth reduction restores x locality for irregular "
+        "matrices; square matrices only). 'auto' detects "
         "scattered-with-recoverable-locality structure and applies RCM "
         "only when it shrinks the bandwidth >=4x (ops/select.py)",
     )
     args = ap.parse_args(argv)
+    import jax
+
+    if args.dtype == "float64":
+        jax.config.update("jax_enable_x64", True)
+    enable_compile_cache()
 
     rp, ci, v, shape, name = load_matrix(args)
     if args.reorder == "auto":
@@ -137,8 +142,8 @@ def main(argv=None):
 
         fmt = select_format(rp, ci, shape)
         if args.spmm > 1:
-            # multi-rhs: the MXU band-block path wins whenever the
-            # matrix's 128-row blocks have bounded windows
+            # multi-rhs: take the band-block path whenever the matrix's
+            # 128-row blocks have bounded windows
             from ..ops.bandmm import build_bandblock
 
             if build_bandblock((rp, ci, v, shape)) is not None:
@@ -160,7 +165,6 @@ def main(argv=None):
         shape,
         sigma=args.sigma,
         num_run=args.num_run,
-        backend=args.backend,
         num_rhs=args.spmm,
         autotune=args.autotune,
     )
@@ -169,16 +173,16 @@ def main(argv=None):
 
 
 def _run_bandblock(args, name, rp, ci, v, shape):
-    """MXU band-block benchmark path (ops/bandmm.py): dense 128-row
-    blocks over bounded column windows, one (R,K)@(K,128) contraction
-    per block — the dense stream is paid once for all --spmm K rhs."""
+    """Band-block benchmark path (ops/bandmm.py): dense 128-row blocks
+    over bounded column windows, one batched (R,K)@(K,128) contraction
+    — the dense plane is read once for all --spmm K rhs."""
     import time
 
     import jax.numpy as jnp
     import numpy as np
     import scipy.sparse as sp
 
-    from ..ops.bandmm import bandmm_spmm, bandmm_supported, build_bandblock
+    from ..ops.bandmm import bandmm_spmm, build_bandblock
     from .harness import rel_err_device, time_spmv_device_loop
 
     R = max(args.spmm, 1)
@@ -191,8 +195,6 @@ def _run_bandblock(args, name, rp, ci, v, shape):
             "(or the dense plane would exceed the waste gate); use "
             "--format csr5"
         )
-    if not bandmm_supported(bb, R):
-        raise SystemExit(f"--spmm {R} exceeds the VMEM gate for K={bb.K}")
     rng = np.random.default_rng(0)
     xm = rng.integers(1, 10, (shape[1], R)).astype(np.float32)
     xd = jnp.asarray(xm)
@@ -247,8 +249,8 @@ def _run_hyb(args, name, rp, ci, v, shape):
         f"[{name}] ({m}, {n}) nnz = {len(v)}, hyb split: {nd} diagonals + "
         f"{cn} csr5 nnz\n"
         f"HYB5-based SpMV time = {ms:.4f} ms, {met.gbps:.2f} GB/s, "
-        f"{met.gflops:.2f} GFlops, {met.pct_of_roofline:.1f}% of HBM "
-        f"roofline (CSR byte model) [hyb]\n"
+        f"{met.gflops:.2f} GFlops, {met.pct_of_roofline:.1f}% of "
+        f"{met.roofline_gbps:g} GB/s (CSR byte model) [hyb]\n"
         f"Check... {'PASS!' if ok else 'NOT PASS!'} (max rel err {maxrel:.2e})"
     )
     return 0 if ok else 1
@@ -259,13 +261,7 @@ def _run_dia(args, name, rp, ci, v, shape):
     import jax.numpy as jnp
     import scipy.sparse as sp
 
-    from ..ops.dia import (
-        build_dia,
-        dia_spmm,
-        dia_spmm_supported,
-        dia_spmv,
-        dia_supported,
-    )
+    from ..ops.dia import build_dia, dia_spmm, dia_spmv
     from ..utils import perf
     from .harness import time_spmv_device_loop
 
@@ -273,17 +269,6 @@ def _run_dia(args, name, rp, ci, v, shape):
     if d is None:
         raise SystemExit(
             "matrix is not diagonal-structured; use --format csr5"
-        )
-    ok = (
-        dia_spmm_supported(d, args.spmm)
-        if args.spmm > 1
-        else dia_supported(d)
-    )
-    if not ok:
-        raise SystemExit(
-            "matrix exceeds the DIA kernel's limits (f32/bf16 values and "
-            "x resident in VMEM, R-scaled for --spmm); use --format csr5 "
-            "or --dtype float32"
         )
     m, n = shape
     rng = np.random.default_rng(0)
@@ -307,8 +292,8 @@ def _run_dia(args, name, rp, ci, v, shape):
     print(
         f"[{name}] ({m}, {n}) nnz = {len(v)}, ndiag = {d.ndiag}\n"
         f"DIA-based SpMV time = {ms:.4f} ms, {met.gbps:.2f} GB/s, "
-        f"{met.gflops:.2f} GFlops, {met.pct_of_roofline:.1f}% of HBM "
-        f"roofline (CSR byte model) [dia]\n"
+        f"{met.gflops:.2f} GFlops, {met.pct_of_roofline:.1f}% of "
+        f"{met.roofline_gbps:g} GB/s (CSR byte model) [dia]\n"
         f"Check... {'PASS!' if ok else 'NOT PASS!'} (max rel err {maxrel:.2e})"
     )
     return 0 if ok else 1

@@ -1,19 +1,19 @@
 """Global configuration, tunables and status codes.
 
-TPU-native re-design of the reference's shared constants layer:
+Re-design of the reference's shared constants layer:
   - status codes / format enum mirror ``CSR5_cuda/detail/common.h:13-22``
-  - per-backend tile tunables (omega, sigma, thread-group sizes) mirror
-    ``CSR5_cuda/detail/cuda/common_cuda.h:11-15`` and siblings; on TPU the
-    lane count is fixed by hardware (128 vector lanes), so omega defaults to
-    the VREG lane width instead of the warp/wavefront width.
+  - tile tunables (omega, sigma) mirror
+    ``CSR5_cuda/detail/cuda/common_cuda.h:11-15`` and siblings. Here omega
+    is a format parameter fixed at 128 lanes (the window maps of
+    ops/convert.py encode lane indices in 7 bits), not the warp width.
   - the sigma auto-tuning heuristic mirrors
     ``CSR5_cuda/anonymouslib_cuda.h:295-318`` (CUDA) and
-    ``CSR5_opencl_nvidia/anonymouslib_opencl.h:341-357`` (OpenCL), re-tuned
-    for TPU sublane granularity.
+    ``CSR5_opencl_nvidia/anonymouslib_opencl.h:341-357`` (OpenCL), with
+    sigma snapped to multiples of 8.
 
 The reference keeps six per-backend copies of these constants; here a single
 :class:`CSR5Config` collapses them into one runtime-configurable object that
-is hashable (usable as a static jit argument, the TPU analogue of the
+is hashable (usable as a static jit argument, the analogue of the
 reference's template parameters / OpenCL JIT re-specialisation,
 ``anonymouslib_opencl.h:363-479``).
 """
@@ -27,7 +27,7 @@ import jax.numpy as jnp
 
 # ---------------------------------------------------------------------------
 # Status codes (parity with ANONYMOUSLIB_* codes, detail/common.h:13-18).
-# The TPU library raises exceptions instead of returning ints, but the codes
+# The library raises exceptions instead of returning ints, but the codes
 # are preserved for API compatibility with the reference benchmark drivers.
 # ---------------------------------------------------------------------------
 
@@ -53,21 +53,13 @@ class Format(enum.IntEnum):
 #: (ANONYMOUSLIB_AUTO_TUNED_SIGMA, anonymouslib_cuda.h:299).
 AUTO_TUNED_SIGMA = -1
 
-# ---------------------------------------------------------------------------
-# TPU hardware model (v4/v5 class defaults)
-# ---------------------------------------------------------------------------
+#: Tile width granule. The reference's omega is the SIMD width of its
+#: target (32 CUDA warp / 4 AVX2 / 8 AVX-512 / 64 AMD wavefront, SURVEY.md
+#: section 2.0); here omega is a multiple of 128 lanes.
+LANES = 128
 
-#: VPU lane width: the last dim of every vector register. The reference's
-#: omega is the SIMD width of the target (32 CUDA warp / 4 AVX2 / 8 AVX-512 /
-#: 64 AMD wavefront, SURVEY.md section 2.0); on TPU it is 128 lanes.
-TPU_LANES = 128
-
-#: VPU sublane count for float32 (second-to-last dim of a VREG).
-TPU_SUBLANES = 8
-
-#: Default per-chip HBM bandwidth used for roofline reporting when the
-#: device cannot be queried (TPU v5e ~= 819 GB/s).
-DEFAULT_HBM_GBPS = 819.0
+#: sigma granule of the auto-tune heuristic
+SIGMA_QUANTUM = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,28 +67,19 @@ class CSR5Config:
     """Static CSR5 tiling configuration (jit-hashable).
 
     Mirrors the reference tunable set: omega/sigma
-    (``common_cuda.h:11-15``) plus the launch-geometry knobs
-    (THREAD_GROUP/THREAD_BUNCH → ``tiles_per_block``). A fresh config is a
-    new static jit argument, i.e. changing sigma re-specialises the Pallas
-    kernel, mirroring the OpenCL backend's re-JIT on ``setSigma``
-    (``anonymouslib_opencl.h:363-479``).
+    (``common_cuda.h:11-15``). A fresh config is a new static jit argument,
+    i.e. changing sigma re-specialises the executor, mirroring the OpenCL
+    backend's re-JIT on ``setSigma`` (``anonymouslib_opencl.h:363-479``).
     """
 
-    #: Tile width = number of vector lanes cooperating on a tile.
-    omega: int = TPU_LANES
+    #: Tile width = number of lanes cooperating on a tile.
+    omega: int = LANES
     #: Tile height = consecutive nonzeros per lane.
     sigma: int = 16
-    #: Tiles processed per Pallas grid step (the analogue of
-    #: THREAD_GROUP / THREAD_BUNCH block shaping, common_cuda.h:14-15).
-    #: Measured (round-4 TPU sweep, NOTES.md): with the batched window
-    #: pass-2 the per-block fixed costs (two MXU scan matmuls + the
-    #: (B,128) wrap/diff ops) amortize over B — B=128 runs the banded
-    #: primary 21%% faster than the round-1 optimum B=32 (0.208 vs 0.246
-    #: ms), banded2M -15%%, scattered/SpMM a wash. The kernel's
-    #: ``_effective_block`` halves B automatically when the per-block
-    #: SMEM meta block or the tile count cannot support it.
+    #: The tile count is padded to a multiple of this (or to the next
+    #: power of two for smaller matrices). Stored in checkpoints.
     tiles_per_block: int = 128
-    #: Index dtype name (TPU-native int32; the reference templates iT/uiT).
+    #: Index dtype name (int32; the reference templates iT/uiT).
     index_dtype: str = "int32"
 
     @property
@@ -108,10 +91,10 @@ class CSR5Config:
         return jnp.dtype(self.index_dtype)
 
     def __post_init__(self):
-        if self.omega % TPU_LANES != 0:
+        if self.omega % LANES != 0:
             raise ValueError(
-                f"omega={self.omega} must be a multiple of the TPU lane "
-                f"width {TPU_LANES} (Status.UNSUPPORTED_CSR5_OMEGA)"
+                f"omega={self.omega} must be a multiple of "
+                f"{LANES} (Status.UNSUPPORTED_CSR5_OMEGA)"
             )
         if self.sigma < 1 or self.sigma > 1024:
             raise ValueError(
@@ -124,9 +107,9 @@ def compute_sigma(m: int, nnz: int, sigma: int = AUTO_TUNED_SIGMA) -> int:
 
     Behavioural parity with ``anonymouslibHandle::computeSigma``
     (``anonymouslib_cuda.h:295-318``): pick sigma from the mean nnz/row with
-    breakpoints (r, s, t, u). The CUDA backend uses (4, 32, 256, 6); on TPU
-    the sublane granularity favours multiples of 8, so the mapping is snapped
-    to sublane multiples while keeping the same piecewise shape:
+    breakpoints (r, s, t, u). The CUDA backend uses (4, 32, 256, 6); here
+    the mapping is snapped to multiples of 8 while keeping the same
+    piecewise shape (not re-tuned for the current executor):
 
     - short rows (nnz/row <= r): small sigma
     - medium rows: sigma tracks nnz/row
@@ -144,6 +127,5 @@ def compute_sigma(m: int, nnz: int, sigma: int = AUTO_TUNED_SIGMA) -> int:
         sig = s
     else:
         sig = u
-    # snap to a sublane multiple for efficient (sigma, 128) VMEM tiling
-    sig = max(TPU_SUBLANES, (sig // TPU_SUBLANES) * TPU_SUBLANES)
+    sig = max(SIGMA_QUANTUM, (sig // SIGMA_QUANTUM) * SIGMA_QUANTUM)
     return sig

@@ -8,13 +8,13 @@ format is an immutable pytree dataclass so matrices flow through ``jit`` /
 CSR5 layout (reference: SURVEY.md section 2.0; ``anonymouslib_cuda.h:106-220``,
 ``format_cuda.h``): CSR plus tiling metadata over tiles of omega x sigma
 nonzeros, with ``col_idx``/``values`` tile-transposed (AoS->SoA,
-``format_cuda.h:525-744``) so each lane's sigma elements sit in a VMEM
-column. TPU-native deviation from the reference's packed descriptor
-(``anonymouslib_cuda.h:121-134`` packs y_offset/scansum_offset/bit_flag into
-shared 32-bit words): we store the descriptor as structure-of-arrays --
-``y_offset``/``seg_offset`` as narrow integer planes and ``bit_flag`` as
-ceil(sigma/32) packed uint32 words per lane. SoA planes load as contiguous
-(tiles, omega) blocks, which is what the VPU wants, while keeping the same
+``format_cuda.h:525-744``) so each lane's sigma elements sit in one
+column of a (sigma, omega) tile. Deviation from the reference's packed
+descriptor (``anonymouslib_cuda.h:121-134`` packs
+y_offset/scansum_offset/bit_flag into shared 32-bit words): the descriptor
+is stored as structure-of-arrays -- ``y_offset``/``seg_offset`` as narrow
+integer planes and ``bit_flag`` as ceil(sigma/32) packed uint32 words per
+lane. SoA planes are contiguous (tiles, omega) arrays with the same
 compressed footprint; the information content is identical to the packed
 descriptor, so conversion back to CSR is exact.
 """
@@ -26,12 +26,11 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
-
 from ..config import CSR5Config
+from ..utils.pytree import pytree_dataclass, static_field
 
 
-@struct.dataclass
+@pytree_dataclass
 class COOMatrix:
     """Coordinate-format sparse matrix (the .mtx on-disk model).
 
@@ -41,7 +40,7 @@ class COOMatrix:
     row: jax.Array  # (nnz,) int32
     col: jax.Array  # (nnz,) int32
     values: jax.Array  # (nnz,) float
-    shape: Tuple[int, int] = struct.field(pytree_node=False)
+    shape: Tuple[int, int] = static_field()
 
     @property
     def nnz(self) -> int:
@@ -52,7 +51,7 @@ class COOMatrix:
         return self.values.dtype
 
 
-@struct.dataclass
+@pytree_dataclass
 class CSRMatrix:
     """Compressed sparse row matrix.
 
@@ -63,7 +62,7 @@ class CSRMatrix:
     row_ptr: jax.Array  # (m+1,) int32
     col_idx: jax.Array  # (nnz,) int32
     values: jax.Array  # (nnz,) float
-    shape: Tuple[int, int] = struct.field(pytree_node=False)
+    shape: Tuple[int, int] = static_field()
 
     @property
     def m(self) -> int:
@@ -91,9 +90,9 @@ class CSRMatrix:
         return COOMatrix(rows, self.col_idx, self.values, self.shape)
 
 
-@struct.dataclass
+@pytree_dataclass
 class CSR5Matrix:
-    """CSR5 tiled sparse matrix (TPU layout) + TPU execution plan.
+    """CSR5 tiled sparse matrix + its execution plan.
 
     Field-by-field parity with the reference's auxiliary arrays
     (``anonymouslib_cuda.h:40-53``):
@@ -114,27 +113,25 @@ class CSR5Matrix:
     (transposed)        (p, sigma, omega) planes (format_cuda.h:525-744)
     ==================  =====================================================
 
-    TPU-native deviations (reasons in NOTES.md):
+    Deviations from the reference:
 
     - The tail partition is stored as one final zero-padded tile instead of
       raw CSR (the reference computes it with a separate CSR-vector kernel,
-      csr5_spmv_cuda.h:384-419; here one uniform kernel handles all tiles).
+      csr5_spmv_cuda.h:384-419; here one executor handles all tiles).
     - The *execution plan* fields (``pages``/``page_cnt``, ``win_map``)
-      are conversion-time derivations of the
-      descriptor, routed for TPU VREG shuffles: per-tile distinct
-      1024-column x-page lists for the in-kernel gather, and monotone
-      row-end maps for the segmented-sum window extraction.
-    - The calibrator (``anonymouslib_cuda.h:49``) is kernel scratch, not
-      persistent state: the sequential TPU grid accumulates overlapping row
-      windows directly.
+      are conversion-time derivations of the descriptor: per-tile distinct
+      128-column x-page lists (which also encode ``col_packed``), and
+      monotone row-end maps for the segmented-sum window extraction.
+    - There is no calibrator (``anonymouslib_cuda.h:49``): the executor
+      scatter-adds every tile's row windows into y.
     """
 
-    shape: Tuple[int, int] = struct.field(pytree_node=False)
-    config: CSR5Config = struct.field(pytree_node=False)
+    shape: Tuple[int, int] = static_field()
+    config: CSR5Config = static_field()
     #: number of stored tiles incl. padded tail tile(s)
-    num_tiles: int = struct.field(pytree_node=False)
+    num_tiles: int = static_field()
     #: true (unpadded) nonzero count
-    nnz_stored: int = struct.field(pytree_node=False)
+    nnz_stored: int = static_field()
 
     # CSR row pointer retained for the tail partition semantics + asCSR
     row_ptr: jax.Array  # (m+1,) int32
@@ -152,28 +149,25 @@ class CSR5Matrix:
     # element (t, s, l) = CSR element t*omega*sigma + l*sigma + s.
     # col_idx_tiles may be None when ``col_packed`` is present: the packed
     # plane + ``pages`` reconstruct it exactly (:func:`col_tiles_of`), so
-    # the conversion skips uploading the redundant 4 B/nnz raw plane
-    # (upload is the dominant conversion cost on this platform, NOTES.md).
+    # the conversion skips uploading the redundant 4 B/nnz raw plane.
     col_idx_tiles: Optional[jax.Array]  # (p, sigma, omega) int32 or None
     val_tiles: jax.Array  # (p, sigma, omega) float
 
-    # --- TPU execution plan ---------------------------------------------
+    # --- execution plan -------------------------------------------------
     #: (p, pmax) int32: distinct col>>7 x-pages per tile; slots past
     #: page_cnt hold the sentinel n_pad//128 (a guaranteed-zero x row that
-    #: never matches any real col>>7), so the kernel's static masked page
-    #: unroll needs no per-slot count check.
+    #: never matches any real col>>7).
     pages: jax.Array
     page_cnt: jax.Array  # (p,) int32
-    #: (p, capw) int32 packed row-end map: sublane | (lane << 16). The
+    #: (p, capw) int32 packed row-end map: s | (lane << 16). The
     #: in-tile position of the last element of row base+d is
-    #: lane*sigma + sublane (monotone; repeats encode empty rows).
+    #: lane*sigma + s (monotone; repeats encode empty rows).
     win_map: jax.Array
     #: (p, sigma/2, omega) int32 stream-compressed column plane, or None
     #: when pmax > 512. Each int32 packs the uint16 codes
     #: ``lane | local_page<<7`` of tile elements (s, l) and (s+sigma/2, l),
     #: where local_page is the index into ``pages[t]`` (== page - pages[t,0]
-    #: in contiguous mode). Halves the column bytes the SpMV kernel streams;
-    #: ``col_idx_tiles`` remains the uncompressed parity plane for asCSR.
+    #: in contiguous mode). Half the bytes of the int32 column plane.
     col_packed: Optional[jax.Array] = None
 
     # --- static plan parameters -----------------------------------------
@@ -184,18 +178,17 @@ class CSR5Matrix:
     # bit-identically to how it did when saved. A defaulted field that
     # changes numerics requires a checkpoint.FORMAT_VERSION bump instead.
     #: True when win_map slots are anchored at each tile's OWN first row
-    #: (capw == 128; the kernel rotates the diffed window by row_start%128
-    #: into y). False = slots anchored at the 128-aligned base row.
-    win_rel: bool = struct.field(pytree_node=False, default=False)
-    tail_row_start: int = struct.field(pytree_node=False, default=0)
-    capw: int = struct.field(pytree_node=False, default=128)
-    pmax: int = struct.field(pytree_node=False, default=8)
+    #: (wrapped: slot d < row_start%128 holds row base+capw+d).
+    #: False = slots anchored at the 128-aligned base row.
+    win_rel: bool = static_field(default=False)
+    tail_row_start: int = static_field(default=0)
+    capw: int = static_field(default=128)
+    pmax: int = static_field(default=8)
     #: True when every tile's x-pages are the consecutive range
-    #: [pages[t,0], pages[t,0]+pmax): the kernel then loads one
-    #: (pmax,128) slab per tile instead of pmax scalar-indexed rows
-    pages_contig: bool = struct.field(pytree_node=False, default=False)
-    m_pad: int = struct.field(pytree_node=False, default=0)
-    n_pad: int = struct.field(pytree_node=False, default=0)
+    #: [pages[t,0], pages[t,0]+pmax)
+    pages_contig: bool = static_field(default=False)
+    m_pad: int = static_field(default=0)
+    n_pad: int = static_field(default=0)
 
     @property
     def m(self) -> int:
@@ -230,8 +223,7 @@ def col_tiles_of(a5: CSR5Matrix) -> jax.Array:
     where ``local_page`` indexes ``pages[t]`` and the original column is
     ``pages[t][local_page] * 128 + lane`` — an exact inverse (pad
     elements round-trip too: their codes point at real pages). Jittable;
-    used by asCSR and the XLA oracle executor, never by the hot kernel
-    (which streams ``col_packed`` directly).
+    used by asCSR and the SpMV executor.
     """
     if a5.col_idx_tiles is not None:
         return a5.col_idx_tiles

@@ -2,7 +2,7 @@
 
 The reference is a kernel benchmark with no end-user algorithms; these
 solvers are the standard consumers of SpMV and demonstrate the framework
-end-to-end (single-chip and distributed). All are jittable with static
+end-to-end (single-device and distributed). All are jittable with static
 iteration counts via ``lax.fori_loop``/``lax.while_loop``.
 """
 
@@ -17,18 +17,23 @@ import jax.numpy as jnp
 SpMV = Callable[[jax.Array], jax.Array]
 
 
-@partial(jax.jit, static_argnames=("spmv", "iters"))
-def conjugate_gradient(
-    spmv: SpMV, b: jax.Array, iters: int = 50, tol: float = 1e-8
-) -> Tuple[jax.Array, jax.Array]:
-    """CG for SPD A. Returns (x, final residual norm)."""
-    x0 = jnp.zeros_like(b)
-    r0 = b
-    p0 = r0
-    rs0 = jnp.vdot(r0, r0)
+@partial(jax.jit, static_argnames=("spmv", "max_iters"))
+def cg_solve(
+    spmv: SpMV, b: jax.Array, tol: float = 0.0, max_iters: int = 50
+) -> Tuple[jax.Array, jax.Array, jax.Array]:
+    """CG for SPD A until ||r|| <= tol * ||b|| or ``max_iters`` steps.
 
-    def body(_, state):
-        x, r, p, rs = state
+    Returns (x, final residual norm, iterations taken)."""
+    x0 = jnp.zeros_like(b)
+    rs0 = jnp.vdot(b, b)
+    stop = jnp.asarray(tol, rs0.dtype) ** 2 * rs0
+
+    def cond(state):
+        i, _, _, _, rs = state
+        return (i < max_iters) & (rs > stop)
+
+    def body(state):
+        i, x, r, p, rs = state
         ap = spmv(p)
         denom = jnp.vdot(p, ap)
         alpha = jnp.where(denom != 0, rs / denom, 0.0)
@@ -37,10 +42,19 @@ def conjugate_gradient(
         rs_new = jnp.vdot(r, r)
         beta = jnp.where(rs != 0, rs_new / rs, 0.0)
         p = r + beta * p
-        return x, r, p, rs_new
+        return i + 1, x, r, p, rs_new
 
-    x, r, _, rs = jax.lax.fori_loop(0, iters, body, (x0, r0, p0, rs0))
-    return x, jnp.sqrt(rs)
+    i, x, _, _, rs = jax.lax.while_loop(cond, body, (0, x0, b, b, rs0))
+    return x, jnp.sqrt(rs), i
+
+
+def conjugate_gradient(
+    spmv: SpMV, b: jax.Array, iters: int = 50, tol: float = 0.0
+) -> Tuple[jax.Array, jax.Array]:
+    """CG for SPD A: ``iters`` steps, or fewer once ||r|| <= tol * ||b||.
+    Returns (x, final residual norm)."""
+    x, res, _ = cg_solve(spmv, b, tol, iters)
+    return x, res
 
 
 @partial(jax.jit, static_argnames=("spmv", "iters"))
@@ -86,11 +100,10 @@ def iterative_refinement(
 ) -> Tuple[jax.Array, jax.Array]:
     """Mixed-precision solve of SPD ``A x = b`` to high-precision accuracy.
 
-    TPU has no native f64; the production pattern is iterative
-    refinement: the inner CG runs on the fast low-precision operator
-    (``spmv_lo``, the f32 Pallas kernel), while residuals are formed with
-    the high-precision operator (``spmv_hi``, e.g. the XLA executor on a
-    f64 matrix). Error contracts by ~the f32 accuracy factor per outer
+    Iterative refinement: the inner CG runs on the cheaper low-precision
+    operator (``spmv_lo``, e.g. an f32 matrix), while residuals are formed
+    with the high-precision operator (``spmv_hi``, e.g. an f64 matrix,
+    which moves twice the bytes per SpMV). Error contracts by ~the f32 accuracy factor per outer
     iteration, reaching f64-level solution accuracy with a handful of
     cheap-inner-solve rounds. Returns (x_hi, final residual norm).
     """

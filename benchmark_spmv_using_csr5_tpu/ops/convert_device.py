@@ -32,7 +32,7 @@ generate_partition_descriptor_s1/_s2        ``tile_descriptor``
 generate_partition_descriptor_s3+_offset    ``tile_empty_offsets``
 (format_cuda.h:269-523)                     (static-width padded table)
 aosoa_transpose (format_cuda.h:525-744)     ``tile_payload`` (swapaxes)
-(TPU execution plan, NOTES.md)              ``tile_page_lists`` /
+(execution plan)                            ``tile_page_lists`` /
                                             ``tile_window_maps`` /
                                             ``packed_columns``
 ==========================================  ===============================
@@ -195,7 +195,7 @@ def tile_window_maps(
 ) -> jax.Array:
     """(p, capw) int32 packed monotone row-end maps (sublane | lane<<16),
     wrapped or aligned anchoring — the jittable twin of the host block in
-    ``convert.build_csr5`` (NOTES.md window design)."""
+    ``convert.build_csr5``."""
     rs = tile_ptr[:p, None].astype(jnp.int32)
     d = jnp.arange(capw, dtype=jnp.int32)[None, :]
     if win_rel:
@@ -214,7 +214,7 @@ def tile_window_maps(
     ).astype(jnp.int32)
     out = (win_end % sigma) | ((win_end // sigma) << 16)
     # flag bits, bit-for-bit with the host conversion and for BOTH
-    # anchorings (round 5): bit 23 = first-row slot (d == rs%128),
+    # anchorings: bit 23 = first-row slot (d == rs%128),
     # bit 24 = d >= rs%128 (see convert.build_csr5)
     off = rs & 127
     return (

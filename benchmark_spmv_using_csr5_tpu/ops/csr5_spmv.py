@@ -1,29 +1,20 @@
-"""CSR5 SpMV executors.
+"""CSR5 SpMV/SpMM executor.
 
-Two executors over the same :class:`CSR5Matrix` format:
-
-- :func:`csr5_spmv_xla` -- pure-XLA reference executor. Implements the
-  tile/prefix/window decomposition (NOTES.md) with stock XLA ops (gather /
-  cumsum / scatter-add). Runs everywhere (CPU test meshes, interpret-free),
-  and is the independent oracle for the Pallas kernel; on TPU it is slow
-  (XLA lowers gather/scatter serially) and exists for correctness and as
-  the fallback for matrices outside the Pallas kernel's static limits.
-
-- :func:`csr5_spmv_pallas` (ops/csr5_kernel.py) -- the production Pallas
-  TPU kernel: single pass over all tiles, in-VMEM x page gather, roll-based
-  tile prefix scan, routed window extraction, sequential-grid window
-  accumulation. This is the TPU re-design of the reference's 3-kernel
-  pipeline ``spmv_csr5_compute_kernel`` + ``spmv_csr5_calibrate_kernel`` +
-  ``spmv_csr5_tail_partition_kernel`` (csr5_spmv_cuda.h:275-419): compute
-  maps to the per-tile scan+window, calibrate/tail collapse into the
-  sequential overlapping-window accumulation (csr5_spmv_cuda.h:313-419).
+:func:`csr5_spmv_xla` implements the tile/prefix/window decomposition of
+the reference's three-kernel pipeline (``spmv_csr5_compute_kernel`` +
+``spmv_csr5_calibrate_kernel`` + ``spmv_csr5_tail_partition_kernel``,
+csr5_spmv_cuda.h:275-419) with stock XLA operations: an x gather per
+element, a per-tile inclusive prefix sum, a routed window extraction at
+every row end, and a scatter-add of the row windows into y (which takes
+the calibrator's place). It is the only executor; ``csr5_spmv`` is its
+reference-API name.
 
 Both compute ``y = alpha * A @ x`` like ``anonymouslibHandle::spmv``
-(anonymouslib_cuda.h:262-285).
+(anonymouslib_cuda.h:262-285). The scatter-add may run as atomics, so the
+order of the partial sums of a row that spans tiles is not fixed.
 """
 
 from __future__ import annotations
-
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +24,7 @@ from ..models.formats import CSR5Matrix, col_tiles_of
 
 @jax.jit
 def csr5_spmv_xla(a5: CSR5Matrix, x: jax.Array, alpha=1.0) -> jax.Array:
-    """Reference executor for the CSR5 tile decomposition in stock XLA."""
+    """y = alpha * A @ x over the CSR5 tiles (see the module docstring)."""
     p = a5.num_tiles
     sig, omega = a5.sigma, a5.omega
     T = sig * omega
@@ -51,18 +42,23 @@ def csr5_spmv_xla(a5: CSR5Matrix, x: jax.Array, alpha=1.0) -> jax.Array:
     # routed window extraction: W_end[t, d] = P[t, win_end[t, d]]
     # (lane bits are 16-22; wrapped maps carry wrap-flag bits at 23/24)
     win_end = ((a5.win_map >> 16) & 127) * sig + (a5.win_map & 0xFFFF)
-    W_end = jnp.take_along_axis(P, win_end, axis=1)
+    # (a vmapped take, not take_along_axis, which widens indices to int64
+    # under x64)
+    W_end = jax.vmap(lambda r, i: jnp.take(r, i, mode="clip"))(
+        P, win_end
+    )
 
     rs = a5.tile_ptr[:-1]
     base = (rs // 128) * 128
     a = (rs - base)[:, None]  # (p, 1)
-    d = jnp.arange(a5.capw)[None, :]
+    # int32 indices whether or not x64 is enabled
+    d = jnp.arange(a5.capw, dtype=jnp.int32)[None, :]
     if a5.win_rel:
         # wrapped maps (ops/convert.py): slot d = row base+d for
         # d >= rs%128, else base+capw+d; the wrap seam is consecutive rows
         W_prev = jnp.where(d == a, 0.0, jnp.roll(W_end, 1, axis=1))
         W2 = W_end - W_prev
-        rows = base[:, None] + d + jnp.where(d < a, a5.capw, 0)
+        rows = base[:, None] + d + (d < a).astype(jnp.int32) * a5.capw
     else:
         # aligned maps: mask slots before the tile's first row
         W_prev = jnp.concatenate(
@@ -75,40 +71,17 @@ def csr5_spmv_xla(a5: CSR5Matrix, x: jax.Array, alpha=1.0) -> jax.Array:
     return (alpha * y_pad[:m]).astype(x.dtype)
 
 
-def csr5_spmv(a5: CSR5Matrix, x: jax.Array, alpha=1.0, backend: str = "auto") -> jax.Array:
-    """Dispatching spmv(): Pallas on TPU, XLA elsewhere (spmv analogue,
-    anonymouslib_cuda.h:262-285)."""
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if backend == "pallas":
-        from .csr5_kernel import csr5_spmv_pallas
-
-        return csr5_spmv_pallas(a5, x, alpha)
-    return csr5_spmv_xla(a5, x, alpha)
+#: the reference-API name of the executor (anonymouslib_cuda.h:262-285)
+csr5_spmv = csr5_spmv_xla
 
 
 @jax.jit
 def csr5_spmm_xla(a5: CSR5Matrix, x: jax.Array, alpha=1.0) -> jax.Array:
-    """Y = alpha * A @ X for X (n, R): XLA reference executor (vmapped
-    over right-hand sides)."""
+    """Y = alpha * A @ X for X (n, R), vmapped over right-hand sides."""
     return jax.vmap(
         lambda col: csr5_spmv_xla(a5, col, alpha), in_axes=1, out_axes=1
     )(x)
 
 
-def csr5_spmm(
-    a5: CSR5Matrix, x: jax.Array, alpha=1.0, backend: str = "auto"
-) -> jax.Array:
-    """Dispatching SpMM: multi-rhs Pallas kernel on TPU when supported."""
-    from .csr5_kernel import csr5_spmm_pallas, pallas_spmm_supported
-
-    if backend == "auto":
-        backend = (
-            "pallas"
-            if jax.default_backend() == "tpu"
-            and pallas_spmm_supported(a5, int(x.shape[1]))
-            else "xla"
-        )
-    if backend == "pallas":
-        return csr5_spmm_pallas(a5, x, alpha)
-    return csr5_spmm_xla(a5, x, alpha)
+#: multi-rhs entry point (the reference has no SpMM)
+csr5_spmm = csr5_spmm_xla

@@ -2,73 +2,61 @@
 
 The reference declares a second format slot it never implements
 (``ANONYMOUSLIB_FORMAT_HYB5``, CSR5_cuda/detail/common.h:21); this module
-fills that "format expansion" slot TPU-natively. For matrices whose
-nonzeros concentrate on few diagonals (banded systems — the structured
-half of the SpMV benchmark space), DIA streams ONLY the value planes
-(4 B/nnz f32, vs 8 for CSR5's val+col) and replaces the x gather with
-*static* diagonal shifts: each diagonal offset is a compile-time
-constant, so x alignment is two row-slab loads plus a static lane roll
-pair — no per-element column decode at all.
+fills that "format expansion" slot. For matrices whose nonzeros
+concentrate on few diagonals (banded systems — the structured half of the
+SpMV benchmark space), DIA streams ONLY the value planes (4 B/nnz f32, vs
+8 for CSR5's val+col) and replaces the x gather with *static* diagonal
+shifts: each diagonal offset is a compile-time constant, so
+``y = sum_k data[k] * x[off_k:]`` is a sum of statically shifted slices,
+which XLA fuses into one elementwise pass.
 
-y is a normal pipelined Pallas output (each row block is written exactly
-once, so the sequential-grid scratch trick of the CSR5 kernel is not
-needed).
-
-Use :func:`dia_supported` / :func:`build_dia` to gate: matrices with more
-than ``max_diags`` distinct diagonals or a sparse diagonal fill ratio
-convert to ``None`` (DIA would waste bandwidth on stored zeros; CSR5
-stays the general path).
+:func:`build_dia` gates: matrices with more than ``max_diags`` distinct
+diagonals or a sparse diagonal fill ratio convert to ``None`` (DIA would
+waste bandwidth on stored zeros; CSR5 stays the general path).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
+from ..utils.pytree import pytree_dataclass, static_field
+
+#: rows per slab of the interleaved layout; m is padded to a multiple
 LANES = 128
-#: hard cap on stored diagonals (VPU work per output row scales with it)
+#: hard cap on stored diagonals (work per output row scales with it)
 MAX_DIAGS = 96
 #: minimum nnz / (ndiag * m) so stored zeros don't dominate the stream
 MIN_FILL = 0.2
-#: output rows per grid step (swept on TPU: 16384 is 30% faster than
-#: 4096 for few-diagonal matrices, equal for 27-diag; NOTES.md)
-CHUNK_ROWS = 16384
-_VMEM_BUDGET = 96 * 1024 * 1024
 
 
-@struct.dataclass
+@pytree_dataclass
 class DIAMatrix:
     """Diagonal-storage sparse matrix: data[k, i] = A[i, i + offsets[k]].
 
     ``data`` rows are zero-filled where a diagonal leaves the matrix.
-    ``offsets`` is a static (hashable) tuple so the Pallas kernel
-    specializes its shift network per sparsity pattern — the TPU analogue
-    of the reference's per-sigma kernel specialization.
+    ``offsets`` is a static (hashable) tuple, so the executor specializes
+    its shifts per sparsity pattern (the analogue of the reference's
+    per-sigma kernel specialization).
 
     Two storage layouts (``interleaved`` static flag):
 
-    - interleaved (default): ``data`` is (m_pad/128, ndiag, 128) — each
-      grid step fetches ONE contiguous block. Measured 2.2-3.9x faster
-      than diag-major (488 GB/s val-stream at m=2M vs 125; the strided
-      per-diagonal DMAs collapse the stream, worse with m).
-    - diag-major: ``data`` is (ndiag, m_pad) — each grid step DMAs ndiag
-      separate 64 KB slices strided m_pad*4 B apart. Kept for layout A/B
-      and as the natural export view (:func:`_data_diag`).
+    - interleaved (default): ``data`` is (m_pad/128, ndiag, 128), so a
+      128-row slab of every diagonal is one contiguous block; the
+      distributed layer row-shards it by reshape.
+    - diag-major: ``data`` is (ndiag, m_pad), the natural export view
+      (:func:`_data_diag`).
     """
 
-    shape: Tuple[int, int] = struct.field(pytree_node=False)
-    offsets: Tuple[int, ...] = struct.field(pytree_node=False)
-    nnz_stored: int = struct.field(pytree_node=False)
+    shape: Tuple[int, int] = static_field()
+    offsets: Tuple[int, ...] = static_field()
+    nnz_stored: int = static_field()
     data: jax.Array  # (ndiag, m_pad) float, or interleaved 3D
-    m_pad: int = struct.field(pytree_node=False, default=0)
-    interleaved: bool = struct.field(pytree_node=False, default=False)
+    m_pad: int = static_field(default=0)
+    interleaved: bool = static_field(default=False)
 
     @property
     def m(self) -> int:
@@ -119,14 +107,13 @@ def build_dia(
     nnz = int(values.shape[0])
     if nnz == 0:
         return None
-    m_pad = -(-m // CHUNK_ROWS) * CHUNK_ROWS
+    m_pad = -(-m // LANES) * LANES
     interleaved = layout == "interleaved"
 
-    # native two-pass build (round 5): the numpy route walks three
-    # nnz-scale int64 temps (repeat'd rows, offsets, unique's SORT) and
-    # finishes with np.add.at — ~64 s driver-recorded at 56M nnz on this
-    # host; the native plan+fill are two plain CSR passes (and the plan
-    # bails at the (max_diags+1)-th distinct offset, so non-diagonal
+    # native two-pass build: the numpy route walks three nnz-scale int64
+    # temps (repeat'd rows, offsets, unique's sort) and finishes with
+    # np.add.at; the native plan+fill are two plain CSR passes (and the
+    # plan bails at the (max_diags+1)-th distinct offset, so non-diagonal
     # matrices reject in one cheap scan)
     from ..utils import nativelib
 
@@ -150,9 +137,8 @@ def build_dia(
         if len(uniq) > max_diags or nnz < min_fill * len(uniq) * m:
             return None
         # np.add.at sums duplicates (scipy .dia_matrix parity); the
-        # interleaved layout is scattered into directly (a reshape+
-        # transpose afterwards would first-touch a second nnz-scale
-        # buffer, NOTES.md host-write pathology)
+        # interleaved layout is scattered into directly (no second
+        # nnz-scale buffer for a reshape+transpose)
         if interleaved:
             data = np.zeros((m_pad // LANES, len(uniq), LANES), values.dtype)
             np.add.at(data, (rows >> 7, inv, rows & (LANES - 1)), values)
@@ -162,17 +148,19 @@ def build_dia(
     if value_dtype == "auto":
         # lossless-only bf16 (the bandmm/CSR5 storage gate): DIA's data
         # plane IS its whole stream, so this halves both the upload and
-        # the kernel's HBM traffic at big m (the kernel multiplies in
-        # f32; exact round-trip => bit-identical results)
+        # the executor's memory traffic (it multiplies in x's precision;
+        # exact round-trip => bit-identical results). The gate reads the
+        # built plane, where duplicate entries are already summed: two
+        # bf16-exact duplicates can sum to a value bf16 cannot hold.
         from .bandmm import _bf16_roundtrip_exact
 
         value_dtype = None
-        if data.dtype == np.float32 and _bf16_roundtrip_exact(values):
+        if data.dtype == np.float32 and _bf16_roundtrip_exact(data.reshape(-1)):
             import ml_dtypes
 
             value_dtype = ml_dtypes.bfloat16
-    # arena-backed planes MUST upload with a copy (zero-copy aliasing
-    # hazard on the CPU backend, NOTES.md)
+    # arena-backed planes MUST upload with a copy (on the CPU backend
+    # jnp.asarray can alias the host buffer, which the arena reuses)
     if value_dtype is not None:
         # cast on host (halves the uploaded bytes, not just the stored);
         # arena-bounced against the fresh-mapping first-write pathology
@@ -194,217 +182,6 @@ def build_dia(
     )
 
 
-def _stream_x_ok(dia: DIAMatrix) -> bool:
-    """True when the x window of every output chunk fits two consecutive
-    CHUNK_ROWS blocks: pad_l + max_off <= C - 128 (static per-diagonal
-    base rows; see :func:`_dia_kernel_streamx`)."""
-    pad_l = -(-max(0, -min(dia.offsets)) // LANES) * LANES
-    return pad_l + max(0, max(dia.offsets)) <= CHUNK_ROWS - LANES
-
-
-def dia_supported(dia: Optional[DIAMatrix]) -> bool:
-    if dia is None:
-        return False
-    if dia.data.dtype not in (jnp.float32, jnp.bfloat16):
-        return False
-    blk = 2 * dia.ndiag * CHUNK_ROWS * dia.data.dtype.itemsize
-    if _stream_x_ok(dia):
-        # streamed-x mode: x arrives as two pipelined CHUNK_ROWS blocks
-        # per grid step — no whole-x residency, no m/n cap
-        return blk + 6 * CHUNK_ROWS * 4 <= _VMEM_BUDGET
-    pad_l = -(-max(0, -min(dia.offsets)) // LANES) * LANES
-    x_rows = pad_l // LANES + -(-dia.n // LANES) + -(-max(0, max(dia.offsets) + CHUNK_ROWS) // LANES)
-    return x_rows * LANES * 4 + blk + 2 * CHUNK_ROWS * 4 <= _VMEM_BUDGET
-
-
-def dia_spmm_supported(dia: Optional[DIAMatrix], num_rhs: int) -> bool:
-    """R-aware gate for :func:`dia_spmm`. Streamed-x mode holds two
-    (R, CHUNK_ROWS) x blocks; whole-x mode keeps all R stacked planes
-    resident, so its budget scales with R and n."""
-    if not dia_supported(dia):
-        return False
-    blk = 2 * dia.ndiag * CHUNK_ROWS * dia.data.dtype.itemsize
-    out_blk = 2 * num_rhs * CHUNK_ROWS * 4
-    if _stream_x_ok(dia):
-        return blk + out_blk + 4 * num_rhs * CHUNK_ROWS * 4 <= _VMEM_BUDGET
-    pad_l = -(-max(0, -min(dia.offsets)) // LANES) * LANES
-    x_rows = (
-        pad_l // LANES
-        + -(-dia.n // LANES)
-        + -(-max(0, max(dia.offsets) + CHUNK_ROWS) // LANES)
-    )
-    return num_rhs * x_rows * LANES * 4 + blk + out_blk <= _VMEM_BUDGET
-
-
-def _dia_kernel_streamx(
-    val_ref, xa_ref, xb_ref, o_ref, *, offsets, pad_l, C, interleaved
-):
-    """Streamed-x variant: instead of the whole x resident in VMEM (which
-    caps m + n at the VMEM budget), each grid step receives TWO
-    consecutive CHUNK_ROWS blocks of the padded x — the window
-    [i*C + s, i*C + s + C) for every static diagonal shift s lies inside
-    them whenever pad_l + max_off <= C - 128 (:func:`_stream_x_ok`).
-    Pallas double-buffers the two x streams like any other block input,
-    so DIA matrices of ANY m run with O(CHUNK_ROWS) VMEM.
-
-    xa_ref/xb_ref: (C//LANES, LANES) blocks i and i+1 of x2d.
-    """
-    R = C // LANES
-    lanes = jax.lax.broadcasted_iota(jnp.int32, (R, LANES), 1)
-    acc = jnp.zeros((R, LANES), jnp.float32)
-    cache = {}
-
-    def rows(q):
-        # window rows [q, q+R) assembled from the two blocks; q is static
-        # per diagonal, so this is vreg re-indexing, not a data copy
-        if q not in cache:
-            if q == 0:
-                cache[q] = xa_ref[:, :]
-            elif q == R:
-                cache[q] = xb_ref[:, :]
-            else:
-                cache[q] = jnp.concatenate(
-                    [xa_ref[q:, :], xb_ref[:q, :]], axis=0
-                )
-        return cache[q]
-
-    for k, off in enumerate(offsets):
-        s = off + pad_l  # >= 0 by construction
-        q, sh = divmod(s, LANES)
-        if sh == 0:
-            xs = rows(q)
-        else:
-            a = rows(q)
-            b = rows(q + 1)
-            xs = jnp.where(
-                lanes < LANES - sh,
-                pltpu.roll(a, LANES - sh, axis=1),
-                pltpu.roll(b, LANES - sh, axis=1),
-            )
-        v = val_ref[:, k, :] if interleaved else val_ref[k]
-        acc = acc + v.astype(jnp.float32) * xs
-    o_ref[:] = acc
-
-
-def _dia_kernel(val_ref, x_ref, o_ref, *, offsets, pad_l, C, interleaved):
-    """One grid step computes rows [i*C, (i+1)*C).
-
-    val_ref: (ndiag, C//LANES, LANES) value block of this chunk, or
-             (C//LANES, ndiag, LANES) in the interleaved layout (one
-             contiguous DMA per step instead of ndiag strided slices)
-    x_ref:   (x_rows, LANES) whole padded x in VMEM (leading pad_l zeros)
-    o_ref:   (C//LANES, LANES) output block
-    """
-    i = pl.program_id(0)
-    R = C // LANES
-    lanes = jax.lax.broadcasted_iota(jnp.int32, (R, LANES), 1)
-    acc = jnp.zeros((R, LANES), jnp.float32)
-    for k, off in enumerate(offsets):
-        s = off + pad_l  # >= 0 by construction
-        q, sh = divmod(s, LANES)
-        base = i * R + q
-        if sh == 0:
-            xs = x_ref[pl.ds(base, R), :]
-        else:
-            a = x_ref[pl.ds(base, R), :]
-            b = x_ref[pl.ds(base + 1, R), :]
-            xs = jnp.where(
-                lanes < LANES - sh,
-                pltpu.roll(a, LANES - sh, axis=1),
-                pltpu.roll(b, LANES - sh, axis=1),
-            )
-        v = val_ref[:, k, :] if interleaved else val_ref[k]
-        acc = acc + v.astype(jnp.float32) * xs
-    o_ref[:] = acc
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _dia_spmv_jit(dia: DIAMatrix, x, alpha, interpret: bool):
-    m, n = dia.shape
-    m_pad = dia.m_pad
-    C = CHUNK_ROWS
-    R = C // LANES
-    nd = dia.ndiag
-    pad_l = -(-max(0, -min(dia.offsets)) // LANES) * LANES
-    streamed = _stream_x_ok(dia)
-    if streamed:
-        # x rows must cover block m_pad/C (the xb stream of the last
-        # step) and all n real elements, rounded to whole C-blocks
-        x_rows = -(-max(
-            m_pad // LANES + R, (pad_l + n + LANES - 1) // LANES
-        ) // R) * R
-    else:
-        # whole-x residency: storage must fit all n real elements AND the
-        # highest index any diagonal reads ((m_pad-1)+max_off), plus one
-        # slab row for the unaligned b-load
-        pad_r_elems = max(n, m_pad + max(max(dia.offsets), 0)) + LANES
-        x_rows = pad_l // LANES + -(-pad_r_elems // LANES)
-    xp = jnp.zeros(x_rows * LANES, jnp.float32)
-    xv = x.astype(jnp.float32) * jnp.asarray(alpha, jnp.float32)
-    xp = jax.lax.dynamic_update_slice(xp, xv, (pad_l,))
-    x2d = xp.reshape(x_rows, LANES)
-
-    if dia.interleaved:
-        data3 = dia.data  # (m_pad/LANES, nd, LANES) already
-        val_spec = pl.BlockSpec(
-            (C // LANES, nd, LANES),
-            lambda i: (i, 0, 0),
-            memory_space=pltpu.VMEM,
-        )
-    else:
-        data3 = dia.data.reshape(nd, m_pad // LANES, LANES)
-        val_spec = pl.BlockSpec(
-            (nd, C // LANES, LANES),
-            lambda i: (0, i, 0),
-            memory_space=pltpu.VMEM,
-        )
-    if streamed:
-        kernel = functools.partial(
-            _dia_kernel_streamx, offsets=dia.offsets, pad_l=pad_l, C=C,
-            interleaved=dia.interleaved,
-        )
-        x_specs = [
-            pl.BlockSpec((R, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (R, LANES), lambda i: (i + 1, 0), memory_space=pltpu.VMEM
-            ),
-        ]
-        operands = (data3, x2d, x2d)
-    else:
-        kernel = functools.partial(
-            _dia_kernel, offsets=dia.offsets, pad_l=pad_l, C=C,
-            interleaved=dia.interleaved,
-        )
-        x_specs = [pl.BlockSpec(memory_space=pltpu.VMEM)]  # x whole
-        operands = (data3, x2d)
-    y2d = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((m_pad // LANES, LANES), jnp.float32),
-        grid=(m_pad // C,),
-        in_specs=[val_spec, *x_specs],
-        out_specs=pl.BlockSpec(
-            (C // LANES, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=_VMEM_BUDGET + 16 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nd * m_pad,
-            bytes_accessed=nd * m_pad * dia.data.dtype.itemsize + (m + n) * 4,
-            transcendentals=0,
-        ),
-    )(*operands)
-    return y2d.reshape(-1)[:m].astype(x.dtype)
-
-
-def dia_spmv(
-    dia: DIAMatrix, x: jax.Array, alpha=1.0, interpret: bool = False
-) -> jax.Array:
-    """y = alpha * A @ x via the DIA Pallas kernel (static shift network)."""
-    return _dia_spmv_jit(dia, x, alpha, interpret)
-
-
 def _data_diag(dia: DIAMatrix) -> jax.Array:
     """(ndiag, m_pad) view of the value planes regardless of layout."""
     if dia.interleaved:
@@ -412,210 +189,47 @@ def _data_diag(dia: DIAMatrix) -> jax.Array:
     return dia.data
 
 
+def _diag(dia: DIAMatrix, k: int) -> jax.Array:
+    """(m_pad,) values of diagonal k, read in place (no layout transpose)."""
+    if dia.interleaved:
+        return dia.data[:, k, :].reshape(dia.m_pad)
+    return dia.data[k]
+
+
 @jax.jit
-def dia_spmm_xla(dia: DIAMatrix, xm: jax.Array, alpha=1.0) -> jax.Array:
-    """Pure-XLA DIA SpMM fallback for X (n, R) (see :func:`dia_spmv_xla`)."""
+def dia_spmm(dia: DIAMatrix, xm: jax.Array, alpha=1.0) -> jax.Array:
+    """Y = alpha * A @ X for X (n, R): the value planes are read once for
+    all R right-hand sides."""
     m, n = dia.shape
     offs = dia.offsets
-    dd = _data_diag(dia)
+    acc_dt = jnp.promote_types(xm.dtype, dia.data.dtype)
     pad_l = max(0, -min(offs))
     pad_r = max(0, dia.m_pad + max(offs) - n)
-    xp = jnp.pad(xm * jnp.asarray(alpha, xm.dtype), ((pad_l, pad_r), (0, 0)))
-    acc = jnp.zeros((dia.m_pad, xm.shape[1]), dia.data.dtype)
+    xp = jnp.pad(
+        (xm * jnp.asarray(alpha, xm.dtype)).astype(acc_dt), ((pad_l, pad_r), (0, 0))
+    )
+    acc = jnp.zeros((dia.m_pad, xm.shape[1]), acc_dt)
     for k, off in enumerate(offs):
-        xs = jax.lax.dynamic_slice(
-            xp, (pad_l + off, 0), (dia.m_pad, xm.shape[1])
-        ).astype(dia.data.dtype)
-        acc = acc + dd[k][:, None] * xs
+        xs = jax.lax.dynamic_slice(xp, (pad_l + off, 0), (dia.m_pad, xm.shape[1]))
+        acc = acc + _diag(dia, k).astype(acc_dt)[:, None] * xs
     return acc[:m].astype(xm.dtype)
 
 
 @jax.jit
-def dia_spmv_xla(dia: DIAMatrix, x: jax.Array, alpha=1.0) -> jax.Array:
-    """Pure-XLA DIA SpMV: the validation-grade fallback for matrices the
-    Pallas kernel cannot take (f64 values, VMEM-oversized x). Static
-    offsets keep every slice static: y[i] = sum_k data[k,i] * x[i+off_k].
+def dia_spmv(dia: DIAMatrix, x: jax.Array, alpha=1.0) -> jax.Array:
+    """y = alpha * A @ x. Static offsets keep every slice static:
+    y[i] = sum_k data[k,i] * x[i+off_k]. Products and sums are taken in
+    x's precision (or the plane's, if wider), never in a bf16 plane's.
     """
     m, n = dia.shape
     offs = dia.offsets
+    acc_dt = jnp.promote_types(x.dtype, dia.data.dtype)
     pad_l = max(0, -min(offs))
     pad_r = max(0, dia.m_pad + max(offs) - n)
-    dd = _data_diag(dia)
-    xp = jnp.pad(x * jnp.asarray(alpha, x.dtype), (pad_l, pad_r))
-    acc = jnp.zeros(dia.m_pad, dia.data.dtype)
+    xp = jnp.pad((x * jnp.asarray(alpha, x.dtype)).astype(acc_dt), (pad_l, pad_r))
+    acc = jnp.zeros(dia.m_pad, acc_dt)
     for k, off in enumerate(offs):
-        acc = acc + dd[k] * jax.lax.dynamic_slice(
+        acc = acc + _diag(dia, k).astype(acc_dt) * jax.lax.dynamic_slice(
             xp, (pad_l + off,), (dia.m_pad,)
-        ).astype(dia.data.dtype)
+        )
     return acc[:m].astype(x.dtype)
-
-
-def _dia_spmm_kernel_streamx(
-    val_ref, xa_ref, xb_ref, o_ref, *, offsets, pad_l, C, R, interleaved
-):
-    """Streamed-x multi-rhs variant (see :func:`_dia_kernel_streamx`).
-
-    xa_ref/xb_ref: (R, C//LANES, LANES) — blocks i and i+1 of every
-    right-hand side's padded x plane.
-    """
-    Rb = C // LANES
-    lanes = jax.lax.broadcasted_iota(jnp.int32, (Rb, LANES), 1)
-    accs = [jnp.zeros((Rb, LANES), jnp.float32) for _ in range(R)]
-    cache = {}
-
-    def rows(r, q):
-        if (r, q) not in cache:
-            if q == 0:
-                cache[(r, q)] = xa_ref[r]
-            elif q == Rb:
-                cache[(r, q)] = xb_ref[r]
-            else:
-                cache[(r, q)] = jnp.concatenate(
-                    [xa_ref[r, q:, :], xb_ref[r, :q, :]], axis=0
-                )
-        return cache[(r, q)]
-
-    for k, off in enumerate(offsets):
-        s = off + pad_l
-        q, sh = divmod(s, LANES)
-        v = (val_ref[:, k, :] if interleaved else val_ref[k]).astype(
-            jnp.float32
-        )
-        for r in range(R):
-            if sh == 0:
-                xs = rows(r, q)
-            else:
-                a = rows(r, q)
-                b = rows(r, q + 1)
-                xs = jnp.where(
-                    lanes < LANES - sh,
-                    pltpu.roll(a, LANES - sh, axis=1),
-                    pltpu.roll(b, LANES - sh, axis=1),
-                )
-            accs[r] = accs[r] + v * xs
-    for r in range(R):
-        o_ref[r] = accs[r]
-
-
-def _dia_spmm_kernel(
-    val_ref, x_ref, o_ref, *, offsets, pad_l, C, R, x_rows, interleaved
-):
-    """Multi-rhs variant: the value block is streamed once and re-used
-    across all R right-hand sides (same economics as csr5_spmm)."""
-    i = pl.program_id(0)
-    Rb = C // LANES
-    lanes = jax.lax.broadcasted_iota(jnp.int32, (Rb, LANES), 1)
-    accs = [jnp.zeros((Rb, LANES), jnp.float32) for _ in range(R)]
-    for k, off in enumerate(offsets):
-        s = off + pad_l
-        q, sh = divmod(s, LANES)
-        v = (val_ref[:, k, :] if interleaved else val_ref[k]).astype(
-            jnp.float32
-        )
-        for r in range(R):
-            base = r * x_rows + i * Rb + q
-            if sh == 0:
-                xs = x_ref[pl.ds(base, Rb), :]
-            else:
-                a = x_ref[pl.ds(base, Rb), :]
-                b = x_ref[pl.ds(base + 1, Rb), :]
-                xs = jnp.where(
-                    lanes < LANES - sh,
-                    pltpu.roll(a, LANES - sh, axis=1),
-                    pltpu.roll(b, LANES - sh, axis=1),
-                )
-            accs[r] = accs[r] + v * xs
-    for r in range(R):
-        o_ref[r] = accs[r]
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _dia_spmm_jit(dia: DIAMatrix, xm, alpha, interpret: bool):
-    m, n = dia.shape
-    m_pad = dia.m_pad
-    C = CHUNK_ROWS
-    Rb = C // LANES
-    nd = dia.ndiag
-    R = xm.shape[1]
-    pad_l = -(-max(0, -min(dia.offsets)) // LANES) * LANES
-    streamed = _stream_x_ok(dia)
-    if streamed:
-        x_rows = -(-max(
-            m_pad // LANES + Rb, (pad_l + n + LANES - 1) // LANES
-        ) // Rb) * Rb
-    else:
-        pad_r_elems = max(n, m_pad + max(max(dia.offsets), 0)) + LANES
-        x_rows = pad_l // LANES + -(-pad_r_elems // LANES)
-    xt = xm.T.astype(jnp.float32) * jnp.asarray(alpha, jnp.float32)
-    xp = jnp.zeros((R, x_rows * LANES), jnp.float32)
-    xp = jax.lax.dynamic_update_slice(xp, xt, (0, pad_l))
-
-    if dia.interleaved:
-        data3 = dia.data
-        val_spec = pl.BlockSpec(
-            (C // LANES, nd, LANES),
-            lambda i: (i, 0, 0),
-            memory_space=pltpu.VMEM,
-        )
-    else:
-        data3 = dia.data.reshape(nd, m_pad // LANES, LANES)
-        val_spec = pl.BlockSpec(
-            (nd, C // LANES, LANES),
-            lambda i: (0, i, 0),
-            memory_space=pltpu.VMEM,
-        )
-    if streamed:
-        x3d = xp.reshape(R, x_rows, LANES)
-        kernel = functools.partial(
-            _dia_spmm_kernel_streamx, offsets=dia.offsets, pad_l=pad_l,
-            C=C, R=R, interleaved=dia.interleaved,
-        )
-        x_specs = [
-            pl.BlockSpec(
-                (R, Rb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (R, Rb, LANES), lambda i: (0, i + 1, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ]
-        operands = (data3, x3d, x3d)
-    else:
-        x2d = xp.reshape(R * x_rows, LANES)
-        kernel = functools.partial(
-            _dia_spmm_kernel, offsets=dia.offsets, pad_l=pad_l, C=C, R=R,
-            x_rows=x_rows, interleaved=dia.interleaved,
-        )
-        x_specs = [pl.BlockSpec(memory_space=pltpu.VMEM)]  # x whole (R stacked)
-        operands = (data3, x2d)
-    y3d = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct(
-            (R, m_pad // LANES, LANES), jnp.float32
-        ),
-        grid=(m_pad // C,),
-        in_specs=[val_spec, *x_specs],
-        out_specs=pl.BlockSpec(
-            (R, C // LANES, LANES), lambda i: (0, i, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=_VMEM_BUDGET + 16 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nd * m_pad * R,
-            bytes_accessed=nd * m_pad * dia.data.dtype.itemsize
-            + R * (m + n) * 4,
-            transcendentals=0,
-        ),
-    )(*operands)
-    ym = y3d.reshape(R, m_pad)[:, :m]
-    return ym.T.astype(xm.dtype)
-
-
-def dia_spmm(
-    dia: DIAMatrix, x: jax.Array, alpha=1.0, interpret: bool = False
-) -> jax.Array:
-    """Y = alpha * A @ X for X (n, R): multi-rhs DIA kernel."""
-    return _dia_spmm_jit(dia, x, alpha, interpret)

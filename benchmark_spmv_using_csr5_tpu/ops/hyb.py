@@ -2,12 +2,11 @@
 
 The reference *declares* ``ANONYMOUSLIB_FORMAT_HYB5 = 2``
 (CSR5_cuda/detail/common.h:21) but never implements it; this module
-builds it TPU-natively. Nonzeros on *dense* diagonals (fill ratio above
-``diag_fill``) execute through the DIA kernel's static shift network
-(no column stream, no gather); the irregular remainder goes through the
-general CSR5 kernel; ``y = A_dia x + A_csr5 x`` with the add fused by
-XLA. This is the classic structured+scattered split (cf. ELL+COO "HYB"
-on GPUs), mapped to this framework's two Pallas kernels.
+builds it. Nonzeros on *dense* diagonals (fill ratio above ``diag_fill``)
+execute through the DIA executor's static shifts (no column stream, no
+gather); the irregular remainder goes through the general CSR5 executor;
+``y = A_dia x + A_csr5 x``. This is the classic structured+scattered
+split (cf. ELL+COO "HYB" on GPUs).
 """
 
 from __future__ import annotations
@@ -17,22 +16,21 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from ..config import CSR5Config
 from ..models.formats import CSR5Matrix
+from ..utils.pytree import pytree_dataclass, static_field
 from .convert import build_csr5
-from .csr5_kernel import csr5_spmv_pallas, pallas_supported
-from .csr5_spmv import csr5_spmv_xla
-from .dia import MAX_DIAGS, DIAMatrix, build_dia, dia_spmv, dia_spmv_xla, dia_supported
+from .csr5_spmv import csr5_spmm_xla, csr5_spmv_xla
+from .dia import LANES, MAX_DIAGS, DIAMatrix, dia_spmm, dia_spmv
 
 
-@struct.dataclass
+@pytree_dataclass
 class HYBMatrix:
     """DIA part + CSR5 part; either may be None (degenerate splits)."""
 
-    shape: Tuple[int, int] = struct.field(pytree_node=False)
-    nnz_stored: int = struct.field(pytree_node=False)
+    shape: Tuple[int, int] = static_field()
+    nnz_stored: int = static_field()
     dia: Optional[DIAMatrix] = None
     csr5: Optional[CSR5Matrix] = None
 
@@ -103,12 +101,9 @@ def build_hyb(
         d_rows = rows[sel]
         d_off = off[sel]
         d_uniq = uniq[dense]
-        from .dia import CHUNK_ROWS, LANES
-
-        m_pad = -(-m // CHUNK_ROWS) * CHUNK_ROWS
-        # interleaved (m_pad/128, ndiag, 128) layout, scattered into
-        # directly — one contiguous DMA per kernel grid step (2.2-3.9x
-        # over diag-major; see DIAMatrix / NOTES.md)
+        m_pad = -(-m // LANES) * LANES
+        # interleaved (m_pad/128, ndiag, 128) layout (see DIAMatrix),
+        # scattered into directly
         data = np.zeros((m_pad // LANES, len(d_uniq), LANES), values.dtype)
         k = np.searchsorted(d_uniq, d_off)
         np.add.at(data, (d_rows >> 7, k, d_rows & (LANES - 1)), values[sel])
@@ -136,82 +131,25 @@ def build_hyb(
     return HYBMatrix(shape=(m, n), nnz_stored=nnz, dia=dia, csr5=csr5)
 
 
-def hyb_spmv(
-    h: HYBMatrix,
-    x: jax.Array,
-    alpha=1.0,
-    csr5_backend: str = "auto",
-    interpret: bool = False,
-) -> jax.Array:
+def hyb_spmv(h: HYBMatrix, x: jax.Array, alpha=1.0) -> jax.Array:
     """y = alpha * A @ x = DIA part + CSR5 part."""
     parts = []
     if h.dia is not None:
-        # gate the Pallas DIA kernel exactly like the CSR5 side: an f64 or
-        # VMEM-oversized diagonal plane falls back to the XLA path instead
-        # of failing at Mosaic compile time (interpret mode has no limits)
-        if interpret or dia_supported(h.dia):
-            parts.append(dia_spmv(h.dia, x, alpha, interpret=interpret))
-        else:
-            parts.append(dia_spmv_xla(h.dia, x, alpha))
+        parts.append(dia_spmv(h.dia, x, alpha))
     if h.csr5 is not None:
-        backend = csr5_backend
-        if backend == "auto":
-            backend = (
-                "pallas"
-                if jax.default_backend() == "tpu" and pallas_supported(h.csr5)
-                else "xla"
-            )
-        if backend == "pallas":
-            parts.append(csr5_spmv_pallas(h.csr5, x, alpha, interpret=interpret))
-        else:
-            parts.append(csr5_spmv_xla(h.csr5, x, alpha))
+        parts.append(csr5_spmv_xla(h.csr5, x, alpha))
     if not parts:
         return jnp.zeros(h.m, x.dtype)
-    y = parts[0]
-    for p in parts[1:]:
-        y = y + p
-    return y
+    return sum(parts[1:], parts[0])
 
 
-def hyb_spmm(
-    h: HYBMatrix,
-    x: jax.Array,
-    alpha=1.0,
-    csr5_backend: str = "auto",
-    interpret: bool = False,
-) -> jax.Array:
-    """Y = alpha * A @ X for X (n, R): DIA part + CSR5 part.
-
-    Multi-rhs extension of :func:`hyb_spmv`; both sub-kernels stream their
-    value planes once and reuse them across the R right-hand sides.
-    """
-    from .csr5_kernel import csr5_spmm_pallas, pallas_spmm_supported
-    from .csr5_spmv import csr5_spmm_xla
-    from .dia import dia_spmm, dia_spmm_supported, dia_spmm_xla
-
+def hyb_spmm(h: HYBMatrix, x: jax.Array, alpha=1.0) -> jax.Array:
+    """Y = alpha * A @ X for X (n, R): DIA part + CSR5 part."""
     parts = []
     if h.dia is not None:
-        # R-aware gate: the SpMM kernel keeps R stacked x planes in VMEM
-        if interpret or dia_spmm_supported(h.dia, x.shape[1]):
-            parts.append(dia_spmm(h.dia, x, alpha, interpret=interpret))
-        else:
-            parts.append(dia_spmm_xla(h.dia, x, alpha))
+        parts.append(dia_spmm(h.dia, x, alpha))
     if h.csr5 is not None:
-        backend = csr5_backend
-        if backend == "auto":
-            backend = (
-                "pallas"
-                if jax.default_backend() == "tpu"
-                and pallas_spmm_supported(h.csr5, x.shape[1])
-                else "xla"
-            )
-        if backend == "pallas":
-            parts.append(csr5_spmm_pallas(h.csr5, x, alpha, interpret=interpret))
-        else:
-            parts.append(csr5_spmm_xla(h.csr5, x, alpha))
+        parts.append(csr5_spmm_xla(h.csr5, x, alpha))
     if not parts:
         return jnp.zeros((h.m, x.shape[1]), x.dtype)
-    y = parts[0]
-    for p in parts[1:]:
-        y = y + p
-    return y
+    return sum(parts[1:], parts[0])

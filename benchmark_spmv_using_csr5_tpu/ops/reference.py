@@ -1,8 +1,8 @@
 """Golden SpMV / SpMM kernels in pure jax.numpy.
 
-The TPU analogue of the reference's serial CSR oracle
+The analogue of the reference's serial CSR oracle
 (``CSR5_cuda/main.cu:336-355``): simple, obviously-correct formulations used
-to validate the CSR5 Pallas kernels, and as the always-available fallback
+to validate the CSR5 executor, and as the always-available fallback
 compute path. All are jittable with static shapes.
 """
 
@@ -62,10 +62,10 @@ def csr_spmv_scan(a: CSRMatrix, x: jax.Array, alpha=1.0) -> jax.Array:
     """Prefix-sum formulation: y[r] = P[end(r)] - P[end(r-1)] with
     P = cumsum of products in element order.
 
-    This is the mathematical core the CSR5 kernel blocks: the Pallas kernel
-    computes the same prefix structure tile-locally with a carry (the
-    calibrator) instead of one global scan. Kept as an independent oracle so
-    the tiled kernel can be differenced against both formulations.
+    This is the mathematical core the CSR5 executor blocks: it computes
+    the same prefix structure tile-locally and scatter-adds the row
+    windows instead of one global scan. Kept as an independent oracle so
+    the tiled executor can be differenced against both formulations.
     """
     prod = a.values * jnp.take(x, a.col_idx)
     pre = jnp.cumsum(prod)

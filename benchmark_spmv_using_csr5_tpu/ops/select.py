@@ -5,17 +5,17 @@ The reference library leaves format choice to the caller (the
 for, ``anonymouslib_cuda.h:79-220``); its only auto-tuning is the sigma
 heuristic. This module adds the missing piece for a framework with three
 formats: ONE O(nnz) structural analysis of the diagonal occupancy decides
-which format's kernel will win, using the measured TPU crossovers:
+which format's executor should win:
 
 - **DIA** whenever the whole matrix fits dense diagonals (ndiag <=
-  MAX_DIAGS, fill >= MIN_FILL): with the interleaved value layout the
-  DIA kernel streams 4 B/nnz with zero gather work and measured FASTER
-  than CSR5 at every tested size (tridiag500k 0.016 vs 0.06 ms,
-  banded27-500k 0.118 vs 0.26, banded27-2M 0.46 vs 1.19; NOTES.md).
+  MAX_DIAGS, fill >= MIN_FILL): DIA reads 4 B/nnz (f32) with no column
+  stream and no gather.
 - **HYB5** when a dense-diagonal core holds a meaningful share of nnz
-  but a scattered remainder rules pure DIA out (measured 1.32 ms vs
-  3.27 pure-CSR5 on the mixed benchmark; ops/hyb.py).
-- **CSR5** otherwise — the general path with its tiered gather.
+  but a scattered remainder rules pure DIA out (ops/hyb.py).
+- **CSR5** otherwise — the general path.
+
+The thresholds are structural; the crossovers between the executors have
+not been measured on the current accelerator.
 
 ``select_format`` only reads the structure (no conversion); callers then
 build the chosen format. ``analyze_diagonals`` exposes the raw stats for
@@ -34,9 +34,9 @@ from .dia import MAX_DIAGS, MIN_FILL
 #: a diagonal is HYB-dense when filled to at least this ratio of its
 #: maximum length (ops/hyb.py default)
 HYB_DIAG_FILL = 0.5
-#: HYB pays two kernel launches + a y add; only worth it when the dense
-#: diagonals carry at least this share of nnz (below it, CSR5's tiered
-#: gather on the full matrix wins)
+#: HYB pays two executors + a y add; only worth it when the dense
+#: diagonals carry at least this share of nnz (below it, CSR5 on the full
+#: matrix is assumed to win)
 HYB_MIN_DIA_SHARE = 0.35
 
 
@@ -91,15 +91,17 @@ def select_format(row_ptr, col_idx, shape) -> str:
 # full plan: format + reordering
 # ---------------------------------------------------------------------------
 
-#: bandwidth (max |col-row|) above which the CSR5 gather leaves the
-#: contiguous-slab tier (CONTIG_PAGE_CAP=8 pages of 128 columns) and a
-#: reordering attempt is worth its one-time cost
+#: bandwidth (max |col-row|) above which a CSR5 conversion leaves the
+#: contiguous-pages mode (CONTIG_PAGE_CAP=8 pages of 128 columns) and a
+#: reordering attempt is considered worth its one-time cost. The
+#: threshold comes from that conversion mode; whether it is the right
+#: crossover for the current executor has not been measured.
 SCATTER_BANDWIDTH = 8 * 128
 #: apply RCM only when it shrinks the bandwidth at least this much —
-#: below it, the permute+reconvert churn outweighs the tier upgrade.
-#: (Uniform-random columns are mathematically RCM-immune: any symmetric
-#: permutation keeps per-tile column draws uniform — the measured tier-2
-#: floor, NOTES.md — so powerlaw-class matrices land here and stay raw.)
+#: below it, the permute+reconvert churn outweighs the locality gain.
+#: (Uniform-random columns are RCM-immune: any symmetric permutation
+#: keeps per-tile column draws uniform, so powerlaw-class matrices land
+#: here and stay raw.)
 RCM_MIN_GAIN = 4.0
 
 
@@ -117,12 +119,11 @@ def select_plan(row_ptr, col_idx, shape) -> Plan:
     """Format selection PLUS scattered-locality recovery (the auto
     ``--reorder`` path).
 
-    The reference leaves both choices to the caller; the measured TPU
-    reality (NOTES.md) is that a badly-ordered matrix with recoverable
-    locality runs ~15x slower on the tier-2 gather than its RCM-
-    reordered self (scrambled300k 10.3 -> 0.7 ms), so a framework
-    front-door must try the reordering itself: when the format is CSR5
-    and the bandwidth exceeds the contiguous-gather reach
+    The reference leaves both choices to the caller. A badly-ordered
+    matrix with recoverable locality gathers x from scattered columns
+    where its reordered self reads a narrow band, so a framework
+    front-door tries the reordering itself: when the format is CSR5
+    and the bandwidth exceeds the contiguous-pages reach
     (SCATTER_BANDWIDTH), compute the RCM permutation and recommend it
     iff it shrinks the bandwidth >= RCM_MIN_GAIN x. The attempt is
     O(nnz)-ish one-time preprocessing, same class as conversion itself;

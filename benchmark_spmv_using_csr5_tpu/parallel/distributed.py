@@ -2,16 +2,16 @@
 
 The reference is single-device (SURVEY.md section 2.2); this layer is the
 new capability mandated by BASELINE.json: row-block partitioning of the
-matrix across a ``jax.sharding.Mesh``, with the x vector exchanged over
-ICI via an in-``shard_map`` all-gather, and y produced row-sharded.
+matrix across a ``jax.sharding.Mesh``, with the x vector exchanged by an
+in-``shard_map`` all-gather (or neighbor halos), and y produced row-sharded.
 
 Design (scaling-book style): 1-D mesh axis ``"rows"``; A's rows are split
 into contiguous blocks (one per device); each device holds the CSR5 tiles
 of its block (padded to a common static tile count so the stacked plan is
 one array with a leading device axis). x is row-sharded; inside the
-shard_map each device all-gathers x (ICI all-gather), runs the single-chip
-CSR5 executor on its local tiles, and emits its y block. Collectives ride
-the mesh axis; XLA overlaps the gather with the leading tiles' compute.
+shard_map each device all-gathers x, runs the single-device CSR5 executor
+on its local tiles, and emits its y block. Collectives ride the mesh axis
+(NCCL on GPUs).
 """
 
 from __future__ import annotations
@@ -19,36 +19,36 @@ from __future__ import annotations
 import functools
 from typing import Optional, Sequence, Tuple
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import AUTO_TUNED_SIGMA, CSR5Config, compute_sigma
 from ..models.formats import CSR5Matrix, CSRMatrix, csr_from_numpy
 from ..ops.convert import build_csr5
-from ..ops.csr5_spmv import csr5_spmv_xla
+from ..ops.csr5_spmv import csr5_spmm_xla, csr5_spmv_xla
+from ..utils.pytree import pytree_dataclass, static_field
 
 
-@struct.dataclass
+@pytree_dataclass
 class DistributedCSR5:
     """Row-block-partitioned CSR5: every plan array gains a leading device
     axis; statics are uniform across shards (padded to the max).
 
-    ``halo``: None => x is exchanged with a full ICI all-gather; (H_l, H_r)
+    ``halo``: None => x is exchanged with a full all-gather; (H_l, H_r)
     => every shard was built over the column window
     [d*n_per - H_l, (d+1)*n_per + H_r) and x is exchanged with two
     neighbor ``ppermute`` halos instead (O(H) bytes, not O(n))."""
 
-    shape: Tuple[int, int] = struct.field(pytree_node=False)
-    config: CSR5Config = struct.field(pytree_node=False)
-    num_devices: int = struct.field(pytree_node=False)
-    rows_per_shard: int = struct.field(pytree_node=False)
-    halo: Optional[Tuple[int, int]] = struct.field(
-        pytree_node=False, default=None
-    )
+    shape: Tuple[int, int] = static_field()
+    config: CSR5Config = static_field()
+    num_devices: int = static_field()
+    rows_per_shard: int = static_field()
+    halo: Optional[Tuple[int, int]] = static_field(default=None)
     local: CSR5Matrix = None  # all leaves stacked: (D, ...)
 
     @property
@@ -61,8 +61,7 @@ class DistributedCSR5:
 
     def x_bytes_exchanged(self, itemsize: int = 4) -> int:
         """Per-device x bytes received during one spmv: the observability
-        counter for the halo-vs-all-gather reduction (BASELINE "x-vector
-        halos via ICI")."""
+        counter for the halo-vs-all-gather reduction."""
         D = self.num_devices
         n_per = -(-self.n // D)
         if self.halo is None:
@@ -78,15 +77,13 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "rows") -> Mesh:
 
 def _pad_shard_statics(shards: Sequence[CSR5Matrix]) -> Sequence[CSR5Matrix]:
     """Re-pad every shard to common (p, capw, pmax) statics so they stack."""
-    import dataclasses as dc
-
     p = max(s.num_tiles for s in shards)
     capw = max(s.capw for s in shards)
     pmax = max(s.pmax for s in shards)
     m_pad = max(s.m_pad for s in shards)
     n_pad = max(s.n_pad for s in shards)
     # contiguous-page mode only survives stacking when every shard uses it
-    # with the same slab width (the kernel reads pages[t,0] + static range)
+    # with the same page-range width (pages[t] = pages[t,0] + arange(pmax))
     contig = all(s.pages_contig for s in shards) and all(
         s.pmax == pmax for s in shards
     )
@@ -107,7 +104,7 @@ def _pad_shard_statics(shards: Sequence[CSR5Matrix]) -> Sequence[CSR5Matrix]:
         shards = [
             s
             if s.col_idx_tiles is not None
-            else s.replace(col_idx_tiles=col_tiles_of(s))
+            else dataclasses.replace(s, col_idx_tiles=col_tiles_of(s))
             for s in shards
         ]
         raw = True
@@ -124,7 +121,8 @@ def _pad_shard_statics(shards: Sequence[CSR5Matrix]) -> Sequence[CSR5Matrix]:
         # extend window maps monotonically (repeat last element => zero diff)
         win_map = jnp.pad(s.win_map, ((0, dp), (0, wpad)), mode="edge")
         out.append(
-            s.replace(
+            dataclasses.replace(
+                s,
                 num_tiles=p,
                 capw=capw,
                 pmax=pmax,
@@ -144,10 +142,8 @@ def _pad_shard_statics(shards: Sequence[CSR5Matrix]) -> Sequence[CSR5Matrix]:
                 col_idx_tiles=padp(s.col_idx_tiles) if raw else None,
                 val_tiles=padp(s.val_tiles),
                 col_packed=padp(s.col_packed) if packed else None,
-                # tile-axis pads use page 0 (safe: padded tiles have all
-                # val==0, and a first-page of 0 keeps the contig slab read
-                # in bounds); slot-axis pads use the sentinel so the masked
-                # unroll cannot double-gather a real page
+                # tile-axis pads use page 0 (padded tiles have all
+                # val==0); slot-axis pads use the sentinel page
                 pages=jnp.pad(
                     jnp.pad(s.pages, ((0, dp), (0, 0))),
                     ((0, 0), (0, pmax - s.pmax)),
@@ -164,7 +160,8 @@ def _pad_shard_statics(shards: Sequence[CSR5Matrix]) -> Sequence[CSR5Matrix]:
 def _stack_shards(shards: Sequence[CSR5Matrix]) -> CSR5Matrix:
     eo_max = max(s.empty_offset.shape[0] for s in shards) or 1
     shards = [
-        s.replace(
+        dataclasses.replace(
+            s,
             empty_offset=jnp.pad(s.empty_offset, (0, eo_max - s.empty_offset.shape[0]))
         )
         for s in shards
@@ -359,8 +356,8 @@ def distribute_csr(
         # aligned window maps: shards must share one window anchoring to
         # stack (a shard with small row spans would otherwise pick the
         # relative mode while another picks aligned). A 1-device mesh has
-        # no cross-shard padding, so it keeps the faster wrapped mode —
-        # this is also what the real-chip dist1 bench case measures.
+        # no cross-shard padding, so it keeps the wrapped mode (what the
+        # dist1 bench case measures).
         wm = "aligned" if D > 1 else "auto"
         shards = [
             build_csr5(csr_from_numpy(*c), cfg, win_mode=wm)
@@ -383,13 +380,13 @@ def distribute_csr(
 
 
 def distributed_spmv(
-    da: DistributedCSR5, x: jax.Array, mesh: Mesh, alpha=1.0, backend: str = "xla"
+    da: DistributedCSR5, x: jax.Array, mesh: Mesh, alpha=1.0
 ) -> jax.Array:
-    """y = alpha * A @ x with A row-sharded and x gathered over ICI.
+    """y = alpha * A @ x with A row-sharded and x gathered over the mesh.
 
     x arrives row-sharded over the mesh axis (length padded to D*ceil(n/D));
-    each shard all-gathers x (the ICI collective of BASELINE.json), applies
-    its local CSR5 tiles, and returns its y row block.
+    each shard all-gathers x (or receives its neighbor halos), applies its
+    local CSR5 tiles, and returns its y row block.
     """
     axis = mesh.axis_names[0]
     D = da.num_devices
@@ -401,7 +398,7 @@ def distributed_spmv(
         # squeeze the leading device axis shard_map leaves on each leaf
         a5 = jax.tree.map(lambda a: a[0], local_a5)
         if halo is not None:
-            # neighbor halos over ICI: O(H) bytes instead of the O(n)
+            # neighbor halos: O(H) bytes instead of the O(n)
             # all-gather; shard d was built over the column window
             # [d*n_per - H_l, (d+1)*n_per + H_r), so its x is
             # [left tail | own shard | right head]. Edge devices receive
@@ -420,15 +417,7 @@ def distributed_spmv(
             x_full = jnp.concatenate([from_left, x_shard, from_right])
         else:
             x_full = jax.lax.all_gather(x_shard, axis, tiled=True)[: da.n]
-        if backend in ("pallas", "pallas_interpret"):
-            from ..ops.csr5_kernel import csr5_spmv_pallas
-
-            y_loc = csr5_spmv_pallas(
-                a5, x_full, alpha, interpret=backend == "pallas_interpret"
-            )
-        else:
-            y_loc = csr5_spmv_xla(a5, x_full, alpha)
-        return y_loc[None]
+        return csr5_spmv_xla(a5, x_full, alpha)[None]
 
     y = shard_map(
         local_step,
@@ -445,21 +434,16 @@ def distributed_spmm(
     xm: jax.Array,
     mesh: Mesh,
     alpha=1.0,
-    backend: str = "xla",
 ) -> jax.Array:
     """Y = alpha * A @ X with A row-sharded and the RHS columns sharded.
 
     The 2D decomposition of BASELINE.json configs[3] ("SpMM ... multi-chip
     with sharded RHS") on a 1D mesh, executed as a SUMMA-style ring: each
     of the D steps applies the local A row block to the currently-held
-    X column shard, then ``ppermute``s the shards one hop around the mesh
-    (ICI), so the collective overlaps the next step's compute. After D
-    steps every device holds its Y row block for ALL right-hand sides;
-    no final gather is needed.
-
-    With the pallas backend, the per-device rhs count R/D must stay
-    within the single-kernel cap (16) — a mesh of D devices therefore
-    serves up to 16*D right-hand sides.
+    X column shard, then ``ppermute``s the shards one hop around the mesh,
+    so the collective can overlap the next step's compute. After D steps
+    every device holds its Y row block for ALL right-hand sides; no final
+    gather is needed.
     """
     if da.halo is not None:
         raise ValueError(
@@ -470,17 +454,6 @@ def distributed_spmm(
     n, R = xm.shape[0], xm.shape[1]
     r_per = -(-R // D)
     x_pad = jnp.zeros((n, r_per * D), xm.dtype).at[:, :R].set(xm)
-
-    if backend in ("pallas", "pallas_interpret"):
-        from ..ops.csr5_kernel import csr5_spmm_pallas
-
-        spmm = lambda a5, xs: csr5_spmm_pallas(  # noqa: E731
-            a5, xs, alpha, interpret=backend == "pallas_interpret"
-        )
-    else:
-        from ..ops.csr5_spmv import csr5_spmm_xla
-
-        spmm = lambda a5, xs: csr5_spmm_xla(a5, xs, alpha)  # noqa: E731
 
     perm = [(i, (i + 1) % D) for i in range(D)]
 
@@ -493,7 +466,7 @@ def distributed_spmm(
         for t in range(D):
             # after t hops this device holds the shard of device my - t
             src = jax.lax.rem(my - t + D, jnp.int32(D)).astype(jnp.int32)
-            y_loc = spmm(a5, xs)[:m_local]
+            y_loc = csr5_spmm_xla(a5, xs, alpha)[:m_local]
             y_rows = jax.lax.dynamic_update_slice(
                 y_rows, y_loc, (jnp.int32(0), src * jnp.int32(r_per))
             )

@@ -1,4 +1,4 @@
-"""Distributed (multi-chip) DIA SpMV/SpMM: the structured-matrix fast
+"""Distributed (multi-device) DIA SpMV/SpMM: the structured-matrix fast
 path over a device mesh.
 
 The reference is single-device (SURVEY.md section 2.2); the CSR5
@@ -10,15 +10,14 @@ row-blocks are the *ideal* halo case:
   a plain reshape to ``(D, rp/128, ndiag, 128)`` — no per-shard
   re-conversion, no static re-padding, one host scatter total;
 - the diagonal offsets are global compile-time statics shared by every
-  shard (each shard's kernel is the SAME trace — offsets shift by the
+  shard (each shard's executor is the SAME trace — offsets shift by the
   uniform halo width, not by device);
 - the x window a row block reads is exactly ``[r0+min_off, r1+max_off)``
-  — a single-hop neighbor halo of O(bandwidth) bytes over ICI, never the
-  O(n) all-gather, whenever the band fits a neighbor shard.
+  — a single-hop neighbor halo of O(bandwidth) bytes, never the O(n)
+  all-gather, whenever the band fits a neighbor shard.
 
-Each shard then runs the unmodified single-chip DIA Pallas kernel
-(``ops/dia.py``), streamed-x mode included, so per-shard VMEM stays
-O(CHUNK_ROWS) at any m.
+Each shard then runs the unmodified single-device DIA executor
+(``ops/dia.py``).
 """
 
 from __future__ import annotations
@@ -28,13 +27,11 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax.experimental.shard_map import shard_map
 from jax.sharding import NamedSharding, PartitionSpec as P
 from jax.sharding import Mesh
 
 from ..ops.dia import (
-    CHUNK_ROWS,
     LANES,
     MAX_DIAGS,
     MIN_FILL,
@@ -44,26 +41,25 @@ from ..ops.dia import (
     dia_spmv,
 )
 from ..utils.hostmem import prefaulted
+from ..utils.pytree import pytree_dataclass, static_field
 
 
-@struct.dataclass
+@pytree_dataclass
 class DistributedDIA:
     """Row-block-partitioned DIA matrix.
 
     ``data`` is ``(D, rp/128, ndiag, 128)`` sharded on the leading axis;
     ``halo=(H_l, H_r)`` means x is exchanged with two neighbor
     ``ppermute`` halos (lane-rounded widths); ``halo=None`` falls back to
-    the full ICI all-gather (x wider than the row grid, or a band too
-    wide for single-hop halos)."""
+    the full all-gather (x wider than the row grid, or a band too wide for
+    single-hop halos)."""
 
-    shape: Tuple[int, int] = struct.field(pytree_node=False)
-    offsets: Tuple[int, ...] = struct.field(pytree_node=False)
-    nnz_stored: int = struct.field(pytree_node=False)
-    num_devices: int = struct.field(pytree_node=False)
-    rows_per_shard: int = struct.field(pytree_node=False)
-    halo: Optional[Tuple[int, int]] = struct.field(
-        pytree_node=False, default=None
-    )
+    shape: Tuple[int, int] = static_field()
+    offsets: Tuple[int, ...] = static_field()
+    nnz_stored: int = static_field()
+    num_devices: int = static_field()
+    rows_per_shard: int = static_field()
+    halo: Optional[Tuple[int, int]] = static_field(default=None)
     data: jax.Array = None
 
     @property
@@ -98,9 +94,9 @@ def distribute_dia(
     """CSR -> row-block DIA over ``mesh``, or None when the matrix is not
     diagonal-structured (same gates as :func:`..ops.dia.build_dia`).
 
-    The per-shard row count is rounded to CHUNK_ROWS so every shard is a
-    whole number of single-chip grid steps; the value planes are built
-    once on the host (prefaulted scatter) and row-sharded by reshape.
+    The per-shard row count is rounded to LANES so every shard is a whole
+    number of 128-row slabs; the value planes are built once on the host
+    (prefaulted scatter) and row-sharded by reshape.
     """
     row_ptr, col_idx, values, (m, n) = _as_host(csr)
     nnz = int(values.shape[0])
@@ -112,7 +108,7 @@ def distribute_dia(
     uniq, inv = np.unique(off, return_inverse=True)
     if len(uniq) > max_diags or nnz < min_fill * len(uniq) * m:
         return None
-    rp = -(-m // (D * CHUNK_ROWS)) * CHUNK_ROWS
+    rp = -(-m // (D * LANES)) * LANES
     nd = len(uniq)
     data = prefaulted((D * rp // LANES, nd, LANES), values.dtype)
     np.add.at(data, (rows >> 7, inv, rows & (LANES - 1)), values)
@@ -155,8 +151,8 @@ def _halo_widths(dd: DistributedDIA) -> Tuple[int, int]:
 
 
 def _local_dia(dd: DistributedDIA, data_local: jax.Array) -> DIAMatrix:
-    """The per-shard single-chip DIAMatrix: offsets shift by the uniform
-    left halo width, so every shard shares ONE kernel trace."""
+    """The per-shard single-device DIAMatrix: offsets shift by the uniform
+    left halo width, so every shard shares ONE trace."""
     h_l, h_r = _halo_widths(dd)
     rp = dd.rows_per_shard
     return DIAMatrix(
@@ -203,10 +199,9 @@ def distributed_dia_spmv(
     x: jax.Array,
     mesh: Mesh,
     alpha=1.0,
-    backend: str = "pallas",
 ) -> jax.Array:
     """y = alpha * A @ x, A row-sharded DIA, x exchanged by neighbor
-    halos over ICI (or all-gathered when the band demands it)."""
+    halos (or all-gathered when the band demands it)."""
     axis = mesh.axis_names[0]
     D = dd.num_devices
     rp = dd.rows_per_shard
@@ -217,13 +212,7 @@ def distributed_dia_spmv(
     def local_step(data_local, x_shard):
         a = _local_dia(dd, data_local[0])
         x_loc = _exchange_x(dd, x_shard, axis, h_l, h_r)
-        if backend in ("pallas", "pallas_interpret"):
-            y = dia_spmv(a, x_loc, alpha, interpret=backend == "pallas_interpret")
-        else:
-            from ..ops.dia import dia_spmv_xla
-
-            y = dia_spmv_xla(a, x_loc, alpha)
-        return y[None]
+        return dia_spmv(a, x_loc, alpha)[None]
 
     y = shard_map(
         local_step,
@@ -240,7 +229,6 @@ def distributed_dia_spmm(
     xm: jax.Array,
     mesh: Mesh,
     alpha=1.0,
-    backend: str = "pallas",
 ) -> jax.Array:
     """Y = alpha * A @ X for X (n, R): the value planes stream once per
     shard and re-use across all R right-hand sides; the halo exchange
@@ -256,13 +244,7 @@ def distributed_dia_spmm(
     def local_step(data_local, x_shard):
         a = _local_dia(dd, data_local[0])
         x_loc = _exchange_x(dd, x_shard, axis, h_l, h_r)
-        if backend in ("pallas", "pallas_interpret"):
-            y = dia_spmm(a, x_loc, alpha, interpret=backend == "pallas_interpret")
-        else:
-            from ..ops.dia import dia_spmm_xla
-
-            y = dia_spmm_xla(a, x_loc, alpha)
-        return y[None]
+        return dia_spmm(a, x_loc, alpha)[None]
 
     y = shard_map(
         local_step,

@@ -55,5 +55,5 @@ def tile_to_string(a5: CSR5Matrix, t: int) -> str:
 
 
 def print_tile(a5: CSR5Matrix, t: int, file=sys.stdout) -> None:
-    """The reference's print_tile (detail/utils.h:22-42), CSR5-TPU layout."""
+    """The reference's print_tile (detail/utils.h:22-42), tile-transposed layout."""
     print(tile_to_string(a5, t), file=file)

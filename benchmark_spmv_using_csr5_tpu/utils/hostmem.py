@@ -1,12 +1,10 @@
 """Host-memory allocation helpers for this platform's write pathology.
 
-Measured (NOTES.md): the FIRST write to a fresh large (>~30 MB)
-anonymous numpy mapping runs at ~8 MB/s on this host unless it goes
-through memset/memcpy — ``np.empty`` + a C++ or SIMD store loop costs
-tens of seconds per 100 MB (native tile transpose: 16.6 s into
-``np.empty`` vs 0.14 s into a prefaulted buffer, same call). Prefault
-with ``np.zeros`` + ``.fill(0)`` (memset faults pages at GB/s), then
-in-place writes run at full speed. Slice-assignment/memcpy into lazy
+On some hosts the FIRST write to a fresh large (>~30 MB) anonymous numpy
+mapping is far slower than later writes unless it goes through
+memset/memcpy (page faults taken one scattered store at a time). Prefault
+with ``np.zeros`` + ``.fill(0)`` (memset faults pages at memory speed),
+then in-place writes run at full speed. Slice-assignment/memcpy into lazy
 ``np.zeros`` pages is also fast; scattered or SIMD first writes are not.
 """
 
@@ -29,10 +27,9 @@ def prefaulted(shape, dtype) -> np.ndarray:
 # Process-lifetime buffer arena.
 #
 # Even prefaulted buffers pay the first-touch cost once per allocation, and
-# glibc's reuse of freed large mappings is state-dependent on this host —
-# the SAME conversion measured 2.1 s and 25.1 s in one process (BENCH_r02),
-# and a fresh-process 437 MB first-touch runs at ~90 MB/s vs ~9 GB/s into a
-# kept buffer. Conversion-scale scratch therefore comes from a tag-keyed
+# glibc's reuse of freed large mappings is state-dependent, so the same
+# conversion can take very different times within one process.
+# Conversion-scale scratch therefore comes from a tag-keyed
 # arena that never frees: each tag holds one growing buffer reused across
 # calls, making conversion time deterministic. Callers MUST NOT hold two
 # live views of the same tag, and must copy out (e.g. jnp.asarray) anything

@@ -155,7 +155,7 @@ def write_mtx(path: str, row_ptr, col_idx, values, shape, field="real"):
     ``mmio.h:29-31`` -- unused in the reference but part of its API).
 
     Delegates to the native writer when available (the Python per-line
-    loop is ~50x slower on this 1-vCPU host); ``field`` other than
+    loop is far slower); ``field`` other than
     "real" always takes the Python path.
     """
     m, n = shape

@@ -272,8 +272,8 @@ def col_local_packed(
     """Per-element ``lane | local_page<<7`` uint16 plane (list gather mode).
 
     ``local_page`` is the rank of the element's page in its tile's sorted
-    distinct-page list — the stream-compressed column encoding of the
-    Pallas kernel (valid while pmax <= 512). None if the lib is missing.
+    distinct-page list — the packed column encoding of
+    ``CSR5Matrix.col_packed`` (valid while pmax <= 512). None if the lib is missing.
     """
     lib = _try_load()
     if lib is None:

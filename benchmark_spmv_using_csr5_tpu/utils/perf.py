@@ -7,8 +7,10 @@ Keeps the reference's exact metric formulation
 - ``flops = 2*nnz``
 - ``GB/s = bytes / (1e6 * time_ms)``; ``GFLOPS = flops / (1e6 * time_ms)``
 
-plus the TPU extension required by BASELINE.md: percent of per-chip HBM
-speed-of-light for the same bytes model.
+plus the percent of the device's published memory bandwidth for the same
+bytes model. The reference byte model is not a roofline of this executor
+(which moves more bytes than it counts); it is kept for comparison with
+the paper.
 """
 
 from __future__ import annotations
@@ -18,20 +20,13 @@ import time
 from typing import Callable, Optional
 
 import jax
-import numpy as np
 
-from ..config import DEFAULT_HBM_GBPS
-
-#: measured/printed per-chip HBM bandwidth by device kind (GB/s)
+#: Published peak device-memory bandwidth (GB/s) by ``device_kind`` as JAX
+#: reports it. Source: NVIDIA H100 Tensor Core GPU data sheet, SXM5 part
+#: (3.35 TB/s HBM3, at the full 700 W power limit). A device missing here
+#: is an error, never a default.
 HBM_GBPS_BY_DEVICE = {
-    "TPU v4": 1228.0,
-    "TPU v5 lite": 819.0,
-    "TPU v5e": 819.0,
-    "TPU v5": 2765.0,  # v5p
-    "TPU v5p": 2765.0,
-    "TPU v6 lite": 1640.0,
-    "TPU v6e": 1640.0,
-    "cpu": 50.0,
+    "NVIDIA H100 80GB HBM3": 3350.0,
 }
 
 
@@ -45,13 +40,27 @@ def get_flops(nnz: int) -> int:
     return 2 * nnz
 
 
-def device_hbm_gbps(device=None) -> float:
-    device = device or jax.devices()[0]
-    kind = getattr(device, "device_kind", "cpu")
-    for key, bw in HBM_GBPS_BY_DEVICE.items():
-        if key.lower() in str(kind).lower():
-            return bw
-    return DEFAULT_HBM_GBPS
+def device_kind(device=None) -> str:
+    return (device or jax.devices()[0]).device_kind
+
+
+def device_hbm_gbps(kind: Optional[str] = None) -> float:
+    """Published peak bandwidth of ``kind`` (default: the first device)."""
+    kind = kind if kind is not None else device_kind()
+    try:
+        return HBM_GBPS_BY_DEVICE[kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peak bandwidth for device kind {kind!r}; "
+            f"known kinds: {sorted(HBM_GBPS_BY_DEVICE)}"
+        ) from None
+
+
+def pct_of_peak(nbytes: float, time_ms: float, peak_gbps: Optional[float] = None) -> float:
+    """Percent of the peak bandwidth that ``nbytes`` moved in ``time_ms``
+    would take (peak: the first device's, unless given)."""
+    peak = peak_gbps if peak_gbps is not None else device_hbm_gbps()
+    return 100.0 * nbytes / (time_ms * 1e-3) / (peak * 1e9)
 
 
 @dataclasses.dataclass

@@ -1,11 +1,10 @@
 """Locality-preserving matrix reorderings (bandwidth reduction).
 
-The TPU CSR5 gather cost is ~(distinct x-pages touched per tile) x 5 VPU
-ops (NOTES.md): scattered matrices are page-bound, and the lever for
-real irregular matrices (webbase/circuit class) is a symmetric
-permutation that clusters each tile's columns — classic bandwidth
-reduction. The reference has no preprocessing; this is a TPU-first
-addition. Solvers should run entirely in permuted space (permute b once,
+A CSR5 tile whose columns are scattered gathers x from many distinct
+128-column pages; the lever for real irregular matrices (webbase/circuit
+class) is a symmetric permutation that clusters each tile's columns —
+classic bandwidth reduction. The reference has no preprocessing; this is
+an addition. Solvers should run entirely in permuted space (permute b once,
 un-permute x at the end) so the per-iteration cost is zero.
 """
 

@@ -38,9 +38,8 @@ def random_csr(
 def banded(m: int, bandwidth: int = 27, dtype=np.float64, seed: int = 0) -> sp.csr_matrix:
     """FEM-like banded matrix (structured SuiteSparse class).
 
-    Direct CSR assembly into prefaulted buffers: ``sp.diags`` + dia->csr
-    took >400 s at m=20M on this host (the first-touch write pathology,
-    see ``prefaulted``); this path builds the exact sparsity pattern of
+    Direct CSR assembly into prefaulted buffers (``sp.diags`` + dia->csr
+    is far slower at m=20M; see ``prefaulted``); this path builds the exact sparsity pattern of
     the original ``sp.diags`` construction — diagonals
     ``-bw//2 .. bw//2`` with Python floor division, i.e. offsets
     -(h+1)..h for odd bw (bw+1 diagonals; hence banded500k(27) = 14.0M
@@ -196,7 +195,7 @@ def fem_blocks(
     b0 = int(N - offs[-1])
     # interior nodes: all b rows of a node share one sorted column
     # template ((i + offs) * b expanded to runs of b); chunked broadcast
-    # writes into the prefaulted plane (first-touch rules, NOTES.md)
+    # writes into the prefaulted plane (see utils/hostmem.py)
     if b0 > a0:
         inner = col_idx[row_ptr[a0 * b] : row_ptr[b0 * b]].reshape(
             (b0 - a0) * b, K

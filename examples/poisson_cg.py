@@ -1,16 +1,17 @@
-"""Solve a 2D Poisson problem with CG on the CSR5 TPU kernel.
+"""Solve a 2D Poisson problem with CG on the CSR5 executor.
 
     python examples/poisson_cg.py [grid_side]
 
 Builds the standard 5-point finite-difference Laplacian (SPD, 5
 diagonals), converts to CSR5, and solves A x = b with the framework's
-conjugate-gradient solver. Runs on whatever backend JAX selects (TPU if
-attached, CPU otherwise).
+conjugate-gradient solver. Runs on whatever backend JAX selects (the GPU
+when one is present, the CPU otherwise).
 """
 
 import sys
 import time
 
+import jax
 import numpy as np
 import scipy.sparse as sp
 
@@ -38,9 +39,12 @@ def main():
     x_true = rng.standard_normal(m).astype(np.float32)
     b = (a @ x_true).astype(np.float32)
 
-    spmv = lambda v: csr5_spmv(a5, v)  # noqa: E731
+    # the matrix is a jit argument (a closure would embed it as constants)
+    solve = jax.jit(
+        lambda a5, b: solvers.conjugate_gradient(lambda v: csr5_spmv(a5, v), b, iters=300)
+    )
     t0 = time.perf_counter()
-    x, res = solvers.conjugate_gradient(spmv, b, iters=300)
+    x, res = solve(a5, b)
     x = np.asarray(x)
     dt = time.perf_counter() - t0
     rel = np.linalg.norm(a @ x - b) / np.linalg.norm(b)

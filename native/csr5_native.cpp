@@ -1,4 +1,4 @@
-// Native runtime components of the CSR5 TPU framework.
+// Native runtime components of the CSR5 framework.
 //
 // The reference implements its host-side runtime in C (NIST mmio.{h,c},
 // ~620 LoC per backend copy) and C++ (the benchmark drivers' COO->CSR
@@ -270,12 +270,11 @@ void csr5_tile_ptr(int64_t m, int64_t p, int64_t tile_nnz,
   }
 }
 
-// ---- TPU execution-plan fast paths --------------------------------------
+// ---- execution-plan fast paths ------------------------------------------
 //
-// Per-tile distinct x-page statistics and page lists for the Pallas
-// kernel's gather (see ops/convert.py "TPU execution plan"). One linear
-// pass with a page bitmap per tile; avoids the 56 MB numpy temporaries
-// whose allocation churn costs seconds on small VMs.
+// Per-tile distinct x-page statistics and page lists (see ops/convert.py
+// "execution plan"). One linear pass with a page bitmap per tile; avoids
+// nnz-scale numpy temporaries.
 
 // Phase 1: per-tile page_lo, page_cnt (distinct col>>7 pages) and the
 // global maxima. col_flat has p*tile_nnz entries (tail padded).
@@ -341,8 +340,8 @@ void csr5_page_lists(int64_t p, int64_t tile_nnz, const int32_t* col_flat,
 
 // Phase 3 (packed-column plane): per-element local page index = rank of
 // the element's page within its tile's sorted distinct-page list. Emitted
-// as uint16 "lane | local<<7" (valid while pmax <= 512), the stream-
-// compressed column encoding of the Pallas kernel (ops/csr5_kernel.py).
+// as uint16 "lane | local<<7" (valid while pmax <= 512), the packed
+// column encoding of CSR5Matrix.col_packed (models/formats.py).
 void csr5_col_local(int64_t p, int64_t tile_nnz, const int32_t* col_flat,
                     int64_t n_pages, uint16_t* packed) {
   std::vector<int32_t> rank(static_cast<size_t>(n_pages), -1);
@@ -453,9 +452,7 @@ void csr5_empty_offsets(int64_t m, int64_t p, int64_t tile_nnz,
 
 // AoS->SoA tile transpose (format_cuda.h:525-744 parity), host-side:
 // src (p, omega, sigma) element order -> dst (p, sigma, omega). Done in
-// C++ because numpy's strided copy of this permutation page-faults for
-// seconds on the 1-vCPU host, and doing it on device costs an XLA
-// relayout compile per shape; each (omega*sigma*esize <= 32 KB) tile is
+// C++ because numpy's strided copy of this permutation is slow; each (omega*sigma*esize <= 32 KB) tile is
 // L1-resident so the strided reads are cheap.
 template <typename T>
 static void transpose_tiles_t(int64_t p, int64_t omega, int64_t sigma,
@@ -521,8 +518,7 @@ extern "C" {
 
 // Matrix Market coordinate writer (mm_write_* parity, mmio.h:29-31 --
 // declared-but-unused in the reference; used here by the benchmark's
-// real-matrix generation, where the Python per-line loop is ~50x slower
-// on this 1-vCPU host). Writes "coordinate real general", 1-based.
+// real-matrix generation, where the Python per-line loop is far slower). Writes "coordinate real general", 1-based.
 // Returns 0 on success, -1 on I/O error.
 int32_t mm_write_csr(const char* path, int64_t m, int64_t n, int64_t nnz,
                      const int64_t* row_ptr, const int32_t* col_idx,
@@ -569,7 +565,7 @@ int32_t mm_write_csr(const char* path, int64_t m, int64_t n, int64_t nnz,
 // Dense band-block fill (ops/bandmm.py): zero the (m_pad, K) plane and
 // scatter each nonzero into its 128-row block's column window. Plain
 // row-major stores — the numpy route (repeat + fancy scatter) walks three
-// nnz-scale int64 temps and cost ~10-25 s per build on the 1-vCPU host.
+// nnz-scale int64 temps.
 // ---------------------------------------------------------------------------
 
 extern "C" {
@@ -597,8 +593,7 @@ void bandblock_fill(int64_t m, int64_t m_pad, int64_t K,
 // ---------------------------------------------------------------------------
 // DIA plan + interleaved fill (ops/dia.py). The numpy route materialises
 // three nnz-scale int64 temps (repeat'd rows, offsets, unique's sort) and
-// finishes with np.add.at — tens of seconds per 56M-nnz build on this
-// 1-vCPU host; these are two plain passes over the CSR arrays.
+// finishes with np.add.at; these are two plain passes over the CSR arrays.
 // ---------------------------------------------------------------------------
 
 extern "C" {

@@ -221,22 +221,18 @@ def test_col_packed_decodes_to_columns(make):
     from benchmark_spmv_using_csr5_tpu.models.formats import col_tiles_of
 
     a_sp = make()
-    # packing is gated to sigma % 16 == 0 (NOTES.md: ragged half-planes)
-    raw = build_csr5(
-        csr_from_scipy(a_sp), CSR5Config(sigma=16), keep_raw_cols=True
-    )
-    assert raw.col_packed is not None
-    assert raw.pmax <= 512
-    np.testing.assert_array_equal(
-        _decode_col_packed(raw), np.asarray(raw.col_idx_tiles)
-    )
-    # the default build drops the redundant raw plane (upload compression)
-    # and col_tiles_of reconstructs it bit-for-bit
+    # packing is kept for sigma % 16 == 0; the build then drops the
+    # redundant raw plane, and both the numpy decode and col_tiles_of
+    # reconstruct the tile-transposed columns bit-for-bit
     a5 = build_csr5(csr_from_scipy(a_sp), CSR5Config(sigma=16))
-    assert a5.col_idx_tiles is None
-    np.testing.assert_array_equal(
-        np.asarray(col_tiles_of(a5)), np.asarray(raw.col_idx_tiles)
-    )
+    assert a5.col_packed is not None and a5.col_idx_tiles is None
+    assert a5.pmax <= 512
+    p, T = a5.num_tiles, a5.config.tile_nnz
+    cols = np.full(p * T, a_sp.indices[-1], np.int64)
+    cols[: a_sp.nnz] = sp.csr_matrix(a_sp).indices
+    expect = np.swapaxes(cols.reshape(p, 128, 16), 1, 2)
+    np.testing.assert_array_equal(_decode_col_packed(a5), expect)
+    np.testing.assert_array_equal(np.asarray(col_tiles_of(a5)), expect)
 
 
 def test_col_packed_absent_beyond_pmax512():
@@ -262,16 +258,17 @@ def test_col_packed_numpy_fallback_matches_native():
         pytest.skip("native lib unavailable")
     a_sp = synth.random_csr(300, 20_000, 0.01, seed=9).astype(np.float32)
     csr = a_sp.tocsr()
+    from benchmark_spmv_using_csr5_tpu.models.formats import col_tiles_of
+
     a5 = build_csr5(
         (csr.indptr, csr.indices, csr.data, csr.shape),
         CSR5Config(sigma=16),
-        keep_raw_cols=True,
     )
     assert a5.col_packed is not None and not a5.pages_contig
     T = a5.config.tile_nnz
     p = a5.num_tiles
     col_flat = np.zeros(p * T, np.int32)
-    back = np.swapaxes(np.asarray(a5.col_idx_tiles), 1, 2).reshape(-1)
+    back = np.swapaxes(np.asarray(col_tiles_of(a5)), 1, 2).reshape(-1)
     col_flat[:] = back
     native = nativelib.col_local_packed(col_flat, p, T, a5.n_pad // 128 + 1)
     # numpy fallback re-derivation
@@ -308,7 +305,7 @@ def test_debug_tile_printer():
 def test_autotuned_retunes_scattered_only():
     from benchmark_spmv_using_csr5_tpu import build_csr5_autotuned
 
-    # scattered short rows: heuristic sigma 16 -> retuned to 8 (NOTES.md)
+    # scattered short rows: heuristic sigma 16 -> retuned to 8
     scat = sp.csr_matrix(synth.scattered_band(2000, 16, 1500, dtype=np.float32))
     a5 = build_csr5_autotuned((scat.indptr, scat.indices, scat.data, scat.shape))
     assert not a5.pages_contig and a5.config.sigma == 8
@@ -317,7 +314,7 @@ def test_autotuned_retunes_scattered_only():
     b5 = build_csr5_autotuned((band.indptr, band.indices, band.data, band.shape))
     assert b5.pages_contig and b5.config.sigma == 24
     # scattered LONG rows (fem block class, heuristic sigma >= 24):
-    # retuned to 16, keeping the packed column stream (round-5 sweep)
+    # retuned to 16, keeping the packed column plane
     fem = sp.csr_matrix(
         synth.fem_blocks(6000, neighbors=17, node_bandwidth=1200)
     )
@@ -330,9 +327,7 @@ def test_sigma4_short_row_parity():
     """The reference's small-sigma configurations (sigma=4 for
     nnz/row <= 4, anonymouslib_cuda.h:295-318; AVX-512/Phi sigma=12):
     conversion, round-trip and the XLA executor accept ANY sigma >= 1.
-    The Pallas kernel requires sigma % 8 == 0 (sublane granularity) —
-    the measured justification that sigma=8 dominates for short-row
-    matrices on TPU lives in NOTES.md round 3."""
+    The auto-tune heuristic itself snaps to multiples of 8."""
     import scipy.sparse as sp
 
     from benchmark_spmv_using_csr5_tpu.ops.csr5_spmv import csr5_spmv_xla
@@ -348,7 +343,7 @@ def test_sigma4_short_row_parity():
 
 
 def test_value_dtype_auto_bf16_when_lossless():
-    """value_dtype="auto" (the storage precision gate, VERDICT r05 #2):
+    """value_dtype="auto" (the storage precision gate):
     integer-class values store bf16 with BIT-IDENTICAL results; values
     that do not round-trip bf16 keep f32 storage."""
     import jax.numpy as jnp
@@ -382,14 +377,10 @@ def test_raw_cols_dropped_only_when_packed():
     a5 = build_csr5(csr_from_scipy(a), CSR5Config(sigma=24))
     assert a5.col_packed is None and a5.col_idx_tiles is not None
     # sigma=16 packs -> raw plane dropped, asCSR still exact (roundtrip
-    # helper covers the decode); keep_raw_cols=True restores it
+    # helper covers the decode)
     b5 = build_csr5(csr_from_scipy(a), CSR5Config(sigma=16))
     assert b5.col_packed is not None and b5.col_idx_tiles is None
     roundtrip(a, CSR5Config(sigma=16))
-    c5 = build_csr5(
-        csr_from_scipy(a), CSR5Config(sigma=16), keep_raw_cols=True
-    )
-    assert c5.col_idx_tiles is not None
 
 
 def test_upload_accounting_recorded():
@@ -401,29 +392,4 @@ def test_upload_accounting_recorded():
     assert mb is not None and mb > 0
     # payload = val (4 B) + packed col (2 B) per stored element
     expect = (a5.val_tiles.size * 4 + a5.col_packed.size * 4) / 1e6
-    assert abs(mb - expect) < 1e-6
-
-
-def test_device_decode_upload_path(monkeypatch):
-    """sigma%16!=0 at bench scale: upload rides the 2 B/nnz code plane
-    and the int32 column plane is reconstructed on device — must be
-    bit-identical to the directly-uploaded plane."""
-    import benchmark_spmv_using_csr5_tpu.ops.convert as cv
-
-    a = sp.csr_matrix(synth.banded(3000, 9, dtype=np.float32))
-    csr = (a.indptr, a.indices, a.data, a.shape)
-    ref = build_csr5(csr, CSR5Config(sigma=24))  # direct upload
-    assert ref.col_idx_tiles is not None and ref.col_packed is None
-    monkeypatch.setattr(cv, "DEVICE_DECODE_MIN_NNZ", 0)
-    # the path is gated to real accelerators (CPU XLA gather is slow);
-    # fake the backend so the CPU test exercises the decode wiring
-    monkeypatch.setattr(cv.jax, "default_backend", lambda: "tpu")
-    dec = cv.build_csr5(csr, CSR5Config(sigma=24))
-    assert dec.col_packed is None  # sigma 24 never streams packed
-    np.testing.assert_array_equal(
-        np.asarray(dec.col_idx_tiles), np.asarray(ref.col_idx_tiles)
-    )
-    # uploaded bytes: val (4) + codes (2) per stored element
-    mb = cv.last_convert_phases["upload_mb"]
-    expect = (dec.val_tiles.size * 4 + dec.val_tiles.size * 2) / 1e6
     assert abs(mb - expect) < 1e-6

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from benchmark_spmv_using_csr5_tpu import build_dia, dia_spmv, dia_supported
+from benchmark_spmv_using_csr5_tpu import build_dia, dia_spmv
 from benchmark_spmv_using_csr5_tpu.utils import synth
 
 
@@ -42,9 +42,9 @@ def test_dia_build_matches_scipy_dia():
 def test_dia_spmv_vs_scipy(diags, alpha):
     a = sp.csr_matrix(synth.banded(5000, diags, dtype=np.float32))
     d = build_dia(_host(a))
-    assert d is not None and dia_supported(d)
+    assert d is not None
     x = synth.dense_x(a.shape[1], dtype=np.float32)
-    y = np.asarray(dia_spmv(d, x, alpha=alpha, interpret=True))
+    y = np.asarray(dia_spmv(d, x, alpha=alpha))
     y_ref = alpha * (a @ x)
     np.testing.assert_allclose(
         y, y_ref, atol=2e-5 * max(1.0, np.abs(y_ref).max())
@@ -63,7 +63,7 @@ def test_dia_duplicate_entries_summed():
     d = build_dia((ptr, cols, vals, (4, 4)))
     assert d is not None
     x = np.arange(1, 5, dtype=np.float32)
-    y = np.asarray(dia_spmv(d, x, interpret=True))
+    y = np.asarray(dia_spmv(d, x))
     np.testing.assert_allclose(y, acsr @ x, atol=1e-6)
 
 
@@ -82,7 +82,7 @@ def test_dia_rectangular():
     d = build_dia((a.indptr, a.indices, a.data, a.shape))
     assert d is not None
     x = synth.dense_x(400, dtype=np.float32)
-    y = np.asarray(dia_spmv(d, x, interpret=True))
+    y = np.asarray(dia_spmv(d, x))
     np.testing.assert_allclose(y, a @ x, atol=1e-5)
 
 
@@ -94,7 +94,7 @@ def test_dia_spmm_vs_scipy():
     xm = np.random.default_rng(5).integers(1, 10, (a.shape[1], 4)).astype(
         np.float32
     )
-    ym = np.asarray(dia_spmm(d, xm, alpha=0.5, interpret=True))
+    ym = np.asarray(dia_spmm(d, xm, alpha=0.5))
     y_ref = 0.5 * (a @ xm)
     np.testing.assert_allclose(
         ym, y_ref, atol=2e-5 * max(1.0, np.abs(y_ref).max())
@@ -103,13 +103,7 @@ def test_dia_spmm_vs_scipy():
 
 @pytest.mark.parametrize("layout", ["diag", "interleaved"])
 def test_dia_layouts_match_oracle(layout):
-    from benchmark_spmv_using_csr5_tpu.ops.dia import (
-        build_dia,
-        dia_spmm,
-        dia_spmm_xla,
-        dia_spmv,
-        dia_spmv_xla,
-    )
+    from benchmark_spmv_using_csr5_tpu.ops.dia import build_dia, dia_spmm, dia_spmv
 
     a = sp.csr_matrix(synth.banded(3000, 7, dtype=np.float32))
     d = build_dia((a.indptr, a.indices, a.data, a.shape), layout=layout)
@@ -117,67 +111,14 @@ def test_dia_layouts_match_oracle(layout):
     rng = np.random.default_rng(0)
     x = rng.integers(1, 10, a.shape[1]).astype(np.float32)
     xm = rng.integers(1, 10, (a.shape[1], 3)).astype(np.float32)
-    y_ref = a @ x
-    ym_ref = a @ xm
-    np.testing.assert_allclose(
-        np.asarray(dia_spmv(d, jnp.asarray(x), interpret=True)), y_ref,
-        atol=1e-4 * np.abs(y_ref).max(),
-    )
-    np.testing.assert_allclose(
-        np.asarray(dia_spmv_xla(d, jnp.asarray(x))), y_ref,
-        atol=1e-4 * np.abs(y_ref).max(),
-    )
-    np.testing.assert_allclose(
-        np.asarray(dia_spmm(d, jnp.asarray(xm), interpret=True)), ym_ref,
-        atol=1e-4 * np.abs(ym_ref).max(),
-    )
-    np.testing.assert_allclose(
-        np.asarray(dia_spmm_xla(d, jnp.asarray(xm))), ym_ref,
-        atol=1e-4 * np.abs(ym_ref).max(),
-    )
-
-
-def test_dia_streamed_gate_has_no_size_cap():
-    """Streamed-x mode (two pipelined x blocks per grid step) removes the
-    whole-x VMEM residency cap: a fabricated 100M-row tridiagonal passes
-    the gate while a far-offset matrix falls back to the whole-x check."""
-    import jax.numpy as jnp
-
-    from benchmark_spmv_using_csr5_tpu.ops.dia import (
-        CHUNK_ROWS,
-        DIAMatrix,
-        _stream_x_ok,
-    )
-
-    m = 100_000_000
-    m_pad = -(-m // CHUNK_ROWS) * CHUNK_ROWS
-    d = DIAMatrix(
-        shape=(m, m),
-        offsets=(-1, 0, 1),
-        nnz_stored=3 * m,
-        data=jnp.zeros((1, 3, 128), jnp.float32),  # metadata-only stub
-        m_pad=m_pad,
-        interleaved=True,
-    )
-    assert _stream_x_ok(d) and dia_supported(d)
-    far = DIAMatrix(
-        shape=(m, m),
-        offsets=(0, CHUNK_ROWS),  # max_off > C - 128: whole-x fallback
-        nnz_stored=2 * m,
-        data=jnp.zeros((1, 2, 128), jnp.float32),
-        m_pad=m_pad,
-        interleaved=True,
-    )
-    assert not _stream_x_ok(far)
-    assert not dia_supported(far)  # whole x of 100M rows cannot fit VMEM
+    np.testing.assert_array_equal(np.asarray(dia_spmv(d, jnp.asarray(x))), a @ x)
+    np.testing.assert_array_equal(np.asarray(dia_spmm(d, jnp.asarray(xm))), a @ xm)
 
 
 def test_dia_far_offset_whole_x_path():
-    """Offsets beyond the streamed-window bound use the whole-x kernel."""
-    from benchmark_spmv_using_csr5_tpu.ops.dia import CHUNK_ROWS, _stream_x_ok
-
-    off = CHUNK_ROWS + 256
-    m, n = 600, CHUNK_ROWS + 1000
+    """An offset far beyond the band (right of the 128-row padding)."""
+    off = 16384 + 256
+    m, n = 600, off + 1000
     a = sp.diags(
         [np.ones(m, np.float32), np.ones(m, np.float32)],
         [0, off],
@@ -185,53 +126,47 @@ def test_dia_far_offset_whole_x_path():
         format="csr",
     )
     d = build_dia((a.indptr, a.indices, a.data, a.shape))
-    assert d is not None and not _stream_x_ok(d)
+    assert d is not None and d.offsets == (0, off)
     x = synth.dense_x(n, dtype=np.float32)
-    y = np.asarray(dia_spmv(d, x, interpret=True))
+    y = np.asarray(dia_spmv(d, x))
     np.testing.assert_allclose(y, a @ x, atol=1e-5)
 
 
-def test_dia_streamed_matches_whole_x():
-    """Both x paths produce identical results on the same matrix."""
-    from benchmark_spmv_using_csr5_tpu.ops import dia as dia_mod
+@pytest.mark.parametrize("spmm", [False, True])
+def test_dia_bf16_plane_exact_on_integers(spmm):
+    """value_dtype="auto" stores integer-valued diagonals in bf16; products
+    and sums must still run in x's f32 (a bf16 accumulator would round
+    these ~3000-magnitude sums to 8 mantissa bits)."""
+    from benchmark_spmv_using_csr5_tpu.ops.dia import dia_spmm
 
-    a = sp.csr_matrix(synth.banded(40_000, 11, dtype=np.float32))
-    d = build_dia(_host(a))
-    assert dia_mod._stream_x_ok(d)
-    x = synth.dense_x(a.shape[1], dtype=np.float32)
-    y_stream = np.asarray(dia_spmv(d, x, interpret=True))
-    orig = dia_mod._stream_x_ok
-    dia_mod._stream_x_ok = lambda _d: False
-    try:
-        dia_mod._dia_spmv_jit.clear_cache()
-        y_whole = np.asarray(dia_spmv(d, x, interpret=True))
-    finally:
-        dia_mod._stream_x_ok = orig
-        dia_mod._dia_spmv_jit.clear_cache()
-    np.testing.assert_array_equal(y_stream, y_whole)
-    np.testing.assert_allclose(y_stream, a @ x, atol=1e-5)
+    a = sp.csr_matrix(synth.banded(4000, 27, dtype=np.float32)) * 16.0
+    d = build_dia(_host(a), value_dtype="auto")
+    assert d.data.dtype == jnp.bfloat16
+    rng = np.random.default_rng(2)
+    if spmm:
+        xm = rng.integers(1, 10, (a.shape[1], 3)).astype(np.float32)
+        y = np.asarray(dia_spmm(d, jnp.asarray(xm)))
+        ref = a @ xm
+    else:
+        x = rng.integers(1, 10, a.shape[1]).astype(np.float32)
+        y = np.asarray(dia_spmv(d, jnp.asarray(x)))
+        ref = a @ x
+    assert y.dtype == np.float32
+    np.testing.assert_array_equal(y, ref)
 
 
-def test_dia_spmm_streamed_matches_whole_x():
-    from benchmark_spmv_using_csr5_tpu.ops import dia as dia_mod
-
-    a = sp.csr_matrix(synth.banded(20_000, 9, dtype=np.float32))
-    d = build_dia(_host(a))
-    assert dia_mod._stream_x_ok(d)
-    xm = np.random.default_rng(1).integers(1, 10, (a.shape[1], 3)).astype(
-        np.float32
+def test_dia_bf16_gate_reads_summed_duplicates():
+    """Two bf16-exact duplicates (1 and 2^-8) sum to 1 + 2^-8, which bf16
+    cannot hold: the gate must see the summed plane and keep f32."""
+    ptr = np.array([0, 2, 3, 4, 5])
+    cols = np.array([0, 0, 1, 2, 3])
+    vals = np.array([1.0, 2.0**-8, 3.0, 5.0, 7.0], np.float32)
+    d = build_dia((ptr, cols, vals, (4, 4)), value_dtype="auto")
+    assert d.data.dtype == jnp.float32
+    x = np.ones(4, np.float32)
+    np.testing.assert_array_equal(
+        np.asarray(dia_spmv(d, x)), np.array([1.0 + 2.0**-8, 3.0, 5.0, 7.0], np.float32)
     )
-    ym_stream = np.asarray(dia_mod.dia_spmm(d, xm, interpret=True))
-    orig = dia_mod._stream_x_ok
-    dia_mod._stream_x_ok = lambda _d: False
-    try:
-        dia_mod._dia_spmm_jit.clear_cache()
-        ym_whole = np.asarray(dia_mod.dia_spmm(d, xm, interpret=True))
-    finally:
-        dia_mod._stream_x_ok = orig
-        dia_mod._dia_spmm_jit.clear_cache()
-    np.testing.assert_array_equal(ym_stream, ym_whole)
-    np.testing.assert_allclose(ym_stream, a @ xm, atol=1e-5)
 
 
 def test_native_dia_build_matches_numpy():

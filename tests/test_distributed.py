@@ -1,5 +1,6 @@
 """Distributed (multi-device) tests on the virtual 8-device CPU mesh:
-row-block partitioning, ICI-style all-gather of x, distributed solvers.
+row-block partitioning, all-gather and halo exchange of x, distributed
+solvers.
 The new capability vs the single-device reference (SURVEY.md section 5,
 BASELINE.json multi-host configs).
 """
@@ -60,19 +61,20 @@ def test_distributed_empty_shard():
 
 
 def test_distributed_pallas_backend():
-    # the Pallas kernel (interpret mode) under shard_map: exercises the
-    # trace-safe meta-plane build and per-shard static plan uniformity
+    # the distributed result equals the single-device executor's exactly
+    # on integer data (shards stack aligned window maps; one device keeps
+    # the wrapped ones)
+    from benchmark_spmv_using_csr5_tpu import build_csr5, csr5_spmv
+
     a_sp = synth.banded(1024, 9, dtype=np.float32)
     mesh = make_mesh(4)
     da = distribute_csr(a_sp.indptr, a_sp.indices, a_sp.data, a_sp.shape, mesh)
-    x = synth.dense_x(1024, dtype=np.float32)
-    y = np.asarray(
-        jax.jit(
-            lambda xx: distributed_spmv(da, xx, mesh, backend="pallas_interpret")
-        )(jnp.asarray(x))
-    )
-    y_ref = a_sp @ x
-    assert np.abs(y - y_ref).max() / np.abs(y_ref).max() < 1e-5
+    assert not da.local.win_rel
+    x = np.random.default_rng(0).integers(1, 10, 1024).astype(np.float32)
+    y = np.asarray(jax.jit(lambda xx: distributed_spmv(da, xx, mesh))(jnp.asarray(x)))
+    a5 = build_csr5((a_sp.indptr, a_sp.indices, a_sp.data, a_sp.shape))
+    np.testing.assert_array_equal(y, np.asarray(csr5_spmv(a5, x)))
+    np.testing.assert_array_equal(y, a_sp @ x)
 
 
 def test_weak_scaling_harness():
@@ -141,7 +143,7 @@ def test_distributed_spmm_ragged_rhs():
 def test_halo_exchange_matches_allgather():
     """Banded matrix: halo='auto' builds column-window shards and two
     neighbor ppermutes replace the all-gather, with identical results and
-    an x-bytes-exchanged reduction (VERDICT round-1 item 9)."""
+    an x-bytes-exchanged reduction."""
     a_sp = sp.csr_matrix(synth.banded(4096, 9, dtype=np.float32))
     mesh = make_mesh(8)
     x = np.random.default_rng(0).integers(1, 10, 4096).astype(np.float32)

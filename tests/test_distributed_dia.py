@@ -1,6 +1,6 @@
 """Distributed DIA on the virtual 8-device CPU mesh: row-block sharded
 diagonal matrices with neighbor-halo x exchange (the structured-format
-counterpart of test_distributed.py; BASELINE "x-vector halos via ICI")."""
+counterpart of test_distributed.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -21,14 +21,14 @@ pytestmark = pytest.mark.skipif(
 )
 
 
-def _spmv_err(a_sp, n_dev, backend="pallas_interpret", alpha=1.0):
+def _spmv_err(a_sp, n_dev, alpha=1.0):
     mesh = make_mesh(n_dev)
     dd = distribute_dia(a_sp.tocsr(), mesh)
     assert dd is not None
     x = synth.dense_x(a_sp.shape[1], dtype=np.float32)
     y = np.asarray(
         jax.jit(
-            lambda xx: distributed_dia_spmv(dd, xx, mesh, alpha, backend)
+            lambda xx: distributed_dia_spmv(dd, xx, mesh, alpha)
         )(jnp.asarray(x))
     )
     y_ref = alpha * (a_sp @ x)
@@ -44,7 +44,7 @@ def test_distributed_dia_spmv_matches(n_dev):
 
 
 def test_distributed_dia_uneven_rows_alpha():
-    # m not divisible by D*CHUNK_ROWS; alpha scaling
+    # m not divisible by D*128; alpha scaling
     a_sp = synth.banded(1000, 7, dtype=np.float32)
     dd, err = _spmv_err(a_sp, 8, alpha=2.5)
     assert err < 1e-5
@@ -52,7 +52,7 @@ def test_distributed_dia_uneven_rows_alpha():
 
 def test_distributed_dia_tridiagonal_xla_backend():
     a_sp = synth.banded(2048, 3, dtype=np.float32)
-    dd, err = _spmv_err(a_sp, 4, backend="xla")
+    dd, err = _spmv_err(a_sp, 4)
     assert dd.halo == (128, 128)  # +-1 band rounds to one lane block
     assert err < 1e-5
 
@@ -73,8 +73,8 @@ def test_distributed_dia_halo_traffic_counter():
 
 
 def test_distributed_dia_wide_offsets_fall_back_to_gather():
-    # a diagonal CHUNK_ROWS+256 to the right: halo would exceed the
-    # neighbor shard (rp = CHUNK_ROWS at this size), so halo must be None
+    # a diagonal 16384+256 to the right: the halo would exceed the
+    # neighbor shard (rp = 256 rows at this size), so halo must be None
     # and the all-gather path must still be exact
     m = 1024
     far = 16384 + 256
@@ -88,7 +88,7 @@ def test_distributed_dia_wide_offsets_fall_back_to_gather():
     x = synth.dense_x(n, dtype=np.float32)
     y = np.asarray(
         jax.jit(
-            lambda xx: distributed_dia_spmv(dd, xx, mesh, 1.0, "xla")
+            lambda xx: distributed_dia_spmv(dd, xx, mesh, 1.0)
         )(jnp.asarray(x))
     )
     y_ref = diags @ x
@@ -104,8 +104,7 @@ def test_distributed_dia_spmm(R):
     xm = rng.integers(1, 10, (1024, R)).astype(np.float32)
     ym = np.asarray(
         jax.jit(
-            lambda xx: distributed_dia_spmm(dd, xx, mesh, 1.0,
-                                            "pallas_interpret")
+            lambda xx: distributed_dia_spmm(dd, xx, mesh, 1.0)
         )(jnp.asarray(xm))
     )
     y_ref = a_sp @ xm

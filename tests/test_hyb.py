@@ -30,7 +30,7 @@ def test_hyb_splits_mixed():
     # the band went to DIA
     assert h.dia.ndiag >= 5
     x = synth.dense_x(a.shape[1], dtype=np.float32)
-    y = np.asarray(hyb_spmv(h, x, alpha=1.25, csr5_backend="xla", interpret=True))
+    y = np.asarray(hyb_spmv(h, x, alpha=1.25))
     y_ref = 1.25 * (a @ x)
     np.testing.assert_allclose(
         y, y_ref, atol=2e-5 * max(1.0, np.abs(y_ref).max())
@@ -42,7 +42,7 @@ def test_hyb_pure_banded_has_no_csr5():
     h = build_hyb(_host(a))
     assert h.dia is not None and h.csr5 is None
     x = synth.dense_x(1000, dtype=np.float32)
-    y = np.asarray(hyb_spmv(h, x, interpret=True))
+    y = np.asarray(hyb_spmv(h, x))
     np.testing.assert_allclose(y, a @ x, atol=1e-4)
 
 
@@ -51,7 +51,7 @@ def test_hyb_unstructured_has_no_dia():
     h = build_hyb(_host(a))
     assert h.dia is None and h.csr5 is not None
     x = synth.dense_x(800, dtype=np.float32)
-    y = np.asarray(hyb_spmv(h, x, csr5_backend="xla"))
+    y = np.asarray(hyb_spmv(h, x))
     np.testing.assert_allclose(
         y, a @ x, atol=2e-5 * max(1.0, np.abs(a @ x).max())
     )
@@ -64,7 +64,7 @@ def test_hyb_spmm_mixed():
     assert h.dia is not None and h.csr5 is not None
     rng = np.random.default_rng(3)
     xm = rng.integers(1, 10, size=(a.shape[1], 4)).astype(np.float32)
-    y = np.asarray(hyb_spmm(h, xm, alpha=0.5, csr5_backend="xla", interpret=True))
+    y = np.asarray(hyb_spmm(h, xm, alpha=0.5))
     y_ref = 0.5 * (a @ xm)
     assert y.shape == y_ref.shape
     np.testing.assert_allclose(
@@ -73,16 +73,16 @@ def test_hyb_spmm_mixed():
 
 
 def test_hyb_spmm_xla_dia_fallback_matches():
-    """dia_spmm_xla (the non-Pallas DIA path) agrees with the oracle."""
-    from benchmark_spmv_using_csr5_tpu.ops.dia import build_dia, dia_spmm_xla, dia_spmv_xla
+    """dia_spmm / dia_spmv (HYB's DIA half) agree with the oracle."""
+    from benchmark_spmv_using_csr5_tpu.ops.dia import build_dia, dia_spmm, dia_spmv
 
     a = sp.csr_matrix(synth.banded(700, 5, dtype=np.float32))
     d = build_dia(_host(a))
     rng = np.random.default_rng(4)
     xm = rng.integers(1, 10, size=(700, 3)).astype(np.float32)
-    ym = np.asarray(dia_spmm_xla(d, xm))
+    ym = np.asarray(dia_spmm(d, xm))
     np.testing.assert_allclose(ym, a @ xm, atol=1e-4)
-    yv = np.asarray(dia_spmv_xla(d, xm[:, 0], alpha=2.0))
+    yv = np.asarray(dia_spmv(d, xm[:, 0], alpha=2.0))
     np.testing.assert_allclose(yv, 2.0 * (a @ xm[:, 0]), atol=1e-4)
 
 

@@ -1,5 +1,5 @@
 """Format auto-selection tests (ops/select.py): one structural pass
-picks DIA / HYB5 / CSR5 by the measured TPU crossovers."""
+picks DIA / HYB5 / CSR5 from the structure."""
 
 import numpy as np
 import scipy.sparse as sp
@@ -65,7 +65,7 @@ def test_empty_matrix():
 
 
 # ---------------------------------------------------------------------------
-# select_plan: auto-reorder (VERDICT r3 item 6)
+# select_plan: auto-reorder
 # ---------------------------------------------------------------------------
 
 

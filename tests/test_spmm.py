@@ -1,5 +1,5 @@
-"""SpMM (multi-rhs SpMV) tests: Pallas multi-rhs kernel (interpret mode)
-and XLA executor vs scipy, over edge shapes and rhs counts.
+"""SpMM (multi-rhs SpMV) tests: the CSR5 executor vs scipy, over edge
+shapes and rhs counts.
 
 The reference has no SpMM; this is the BASELINE.json configs[3]
 capability (8-64 rhs columns on CSR5 tiles).
@@ -11,12 +11,9 @@ import pytest
 from benchmark_spmv_using_csr5_tpu import (
     CSR5Config,
     build_csr5,
+    csr5_spmm,
     csr5_spmm_xla,
     csr_from_scipy,
-)
-from benchmark_spmv_using_csr5_tpu.ops.csr5_kernel import (
-    csr5_spmm_pallas,
-    pallas_spmm_supported,
 )
 from benchmark_spmv_using_csr5_tpu.utils import synth
 
@@ -31,23 +28,21 @@ def test_spmm_pallas_matches_scipy(R):
     a_sp = synth.banded(320, 9).astype(np.float32)
     a5 = build_csr5(csr_from_scipy(a_sp), CSR5Config(sigma=8, tiles_per_block=4))
     X = _x_mat(a_sp.shape[1], R)
-    Y = np.asarray(csr5_spmm_pallas(a5, X, alpha=2.0, interpret=True))
+    Y = np.asarray(csr5_spmm(a5, X, alpha=2.0))
     Y_ref = 2.0 * (a_sp @ X)
     np.testing.assert_allclose(Y, Y_ref, atol=2e-5 * max(1.0, np.abs(Y_ref).max()))
 
 
 def test_spmm_rn_layout_matches_nr():
-    # the solver-loop layout (X^T in, Y^T out) must be value-identical
+    # each column of the SpMM is exactly the SpMV of that column
+    from benchmark_spmv_using_csr5_tpu import csr5_spmv
+
     a_sp = synth.banded(320, 9).astype(np.float32)
     a5 = build_csr5(csr_from_scipy(a_sp), CSR5Config(sigma=8, tiles_per_block=4))
     X = _x_mat(a_sp.shape[1], 4)
-    Y_nr = np.asarray(csr5_spmm_pallas(a5, X, interpret=True))
-    Y_rn = np.asarray(
-        csr5_spmm_pallas(
-            a5, np.ascontiguousarray(X.T), interpret=True, layout="rn"
-        )
-    )
-    np.testing.assert_array_equal(Y_rn, Y_nr.T)
+    Y = np.asarray(csr5_spmm(a5, X))
+    for r in range(4):
+        np.testing.assert_array_equal(Y[:, r], np.asarray(csr5_spmv(a5, X[:, r])))
 
 
 def test_spmm_xla_matches_scipy():
@@ -64,16 +59,17 @@ def test_spmm_edge_cases(edge_matrix):
     a_sp = a_sp.astype(np.float32)
     a5 = build_csr5(csr_from_scipy(a_sp), CSR5Config(sigma=8, tiles_per_block=4))
     X = _x_mat(a_sp.shape[1], 2)
-    Y = np.asarray(csr5_spmm_pallas(a5, X, interpret=True))
+    Y = np.asarray(csr5_spmm(a5, X))
     Y_ref = a_sp @ X
     np.testing.assert_allclose(
         Y, Y_ref, atol=2e-5 * max(1.0, np.abs(Y_ref).max()), err_msg=name
     )
 
 
-def test_spmm_supported_gate():
+@pytest.mark.parametrize("R", [16, 64])
+def test_spmm_supported_gate(R):
+    # no rhs cap: wide X runs through the same executor
     a_sp = synth.banded(500, 9).astype(np.float32)
     a5 = build_csr5(csr_from_scipy(a_sp))
-    assert pallas_spmm_supported(a5, 8)
-    assert not pallas_spmm_supported(a5, 0)
-    assert not pallas_spmm_supported(a5, 64)  # v1 rhs cap
+    X = _x_mat(a_sp.shape[1], R)
+    np.testing.assert_array_equal(np.asarray(csr5_spmm(a5, X)), a_sp @ X)
